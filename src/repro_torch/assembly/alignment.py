@@ -1,0 +1,80 @@
+"""Seed-and-extend x-drop pairwise alignment (paper §IV-D), in torch.
+
+The PyTorch counterpart of ``repro.assembly.alignment``: every candidate
+pair is extended forward from the end of its shared k-mer seed and backward
+from its start by the banded x-drop wavefront (see
+``kernels/xdrop/ref.py``); ``batch_extend`` runs each direction as one
+batched ``xdrop_extend`` op on the selected backend and combines them into
+the alignment coordinates the overlap classifier consumes.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..core.backend import dispatch
+from ..kernels.xdrop.ref import xdrop_extend_batch_ref
+
+
+class Extension(NamedTuple):
+    """One direction's result: best score and characters consumed."""
+
+    score: torch.Tensor
+    ai: torch.Tensor
+    bj: torch.Tensor
+
+
+def xdrop_extend(a, base_a, step_a, len_a, b, base_b, step_b, len_b, *,
+                 xdrop: int = 15, match: int = 1, mismatch: int = -1,
+                 gap: int = -1, band: int = 33, max_steps: int = 512
+                 ) -> Extension:
+    """Single-pair x-drop extension: ``a[base_a + step_a·t]`` for
+    t ∈ [0, len_a) is the extension text of a (step −1 walks backwards
+    from a seed), likewise for b."""
+    def one(x):
+        return torch.as_tensor(x, dtype=torch.int32, device=a.device).reshape(1)
+
+    s, i, j = xdrop_extend_batch_ref(
+        a[None], one(base_a), one(step_a), one(len_a), b[None], one(base_b),
+        one(step_b), one(len_b), xdrop=xdrop, match=match, mismatch=mismatch,
+        gap=gap, band=band, max_steps=max_steps,
+    )
+    return Extension(score=s[0], ai=i[0], bj=j[0])
+
+
+class PairAlignment(NamedTuple):
+    """Alignment of a read pair: score and spans [bi, ei) on read i
+    (forward frame) and [bj, ej) on read j (oriented frame)."""
+
+    score: torch.Tensor
+    bi: torch.Tensor
+    ei: torch.Tensor
+    bj: torch.Tensor
+    ej: torch.Tensor
+
+
+def batch_extend(a_codes, a_len, b_codes_oriented, b_len, pa, pb, *, k,
+                 backend: str = "reference", match: int = 1,
+                 **kw) -> PairAlignment:
+    """Batched seed-and-extend through the dispatch seam: the forward and
+    the backward extension each run as one batched ``xdrop_extend`` op."""
+    fn = dispatch("xdrop_extend", backend, a_codes.device)
+    i32 = torch.int32
+    pa, pb, a_len, b_len = (x.to(i32) for x in (pa, pb, a_len, b_len))
+    step = torch.ones(pa.shape, dtype=i32, device=pa.device)
+    kw = dict(match=match, **kw)
+    a_codes = a_codes.contiguous()
+    b_codes_oriented = b_codes_oriented.contiguous()
+    fs, fa, fb = fn(a_codes, pa + k, step, a_len - pa - k, b_codes_oriented,
+                    pb + k, step, b_len - pb - k, **kw)
+    bs, ba, bb = fn(a_codes, pa - 1, -step, pa, b_codes_oriented, pb - 1,
+                    -step, pb, **kw)
+    return PairAlignment(
+        score=k * match + fs + bs,
+        bi=pa - ba,
+        ei=pa + k + fa,
+        bj=pb - bb,
+        ej=pb + k + fb,
+    )

@@ -1,0 +1,333 @@
+"""diBELLA 2D pipeline — the paper's Algorithm 1, end to end, in PyTorch.
+
+    reads → k-mer count/select → A, Aᵀ → C = A·Aᵀ (overlap semiring)
+          → x-drop alignment on nnz(C) → prune by score → R
+          → transitive reduction (Algorithm 2) → S → contigs
+          → consensus (pileup polish)
+
+The PyTorch counterpart of ``repro.assembly.pipeline.assemble`` on one
+device (``distribution="gspmd"``).  It runs on ``PipelineConfig.device``,
+the card by default; ``device="cpu"`` runs the plain-torch path on the CPU.
+With ``backend="cuda"`` (what ``"auto"`` gives on a card) the x-drop,
+min-plus and pileup hot loops are the hand-written kernels of
+``repro_torch.kernels`` and the Contigs stage is the device path.  The stats
+dict carries the keys of the JAX run, with ``"cuda"`` where JAX reports
+``"pallas"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Dict
+
+import torch
+
+from ..core.backend import resolve_backend, resolve_device, resolve_distribution
+from ..core.semiring import overlap_semiring
+from ..core.spgemm import spgemm
+from ..core.spmat import map_row_blocks, next_pow2
+from ..core.string_graph import (
+    build_overlap_graph,
+    classify_overlaps,
+    drop_contained,
+)
+from ..core.transitive_reduction import (
+    transitive_reduction,
+    transitive_reduction_fused,
+)
+from ..obs import Metrics, Watermark, stage_timer, validated
+from . import alignment as al
+from .consensus import polish_contig_set
+from .contig_gen import generate_contigs
+from .contigs import contig_stats
+from .counter import build_matrices, count_and_select
+from .kmers import extract_kmers, revcomp
+
+_I32 = torch.int32
+
+
+@dataclasses.dataclass
+class PipelineConfig:
+    """Knobs of ``assemble`` — those of the JAX ``PipelineConfig`` that
+    the single-device path reads, plus ``device``.  ``distribution=
+    "shard_map"``, ``mesh`` and ``trace=True`` are not ported yet and
+    raise."""
+
+    k: int = 15
+    lower: int = 2  # reliable k-mer frequency window [lower, upper]
+    upper: int = 8
+    read_capacity: int = 128  # K_A: reliable k-mers kept per read
+    m_capacity: int = 1 << 16  # static bound on reliable-unique k-mers
+    overlap_capacity: int = 64  # K_C: candidate overlaps per read
+    r_capacity: int = 48  # K_R: overlap-graph row capacity
+    min_shared_kmers: int = 2
+    # alignment
+    xdrop: int = 20
+    match: int = 1
+    mismatch: int = -1
+    gap: int = -1
+    band: int = 65
+    max_steps: int = 4096
+    score_frac: float = 0.35  # accept if score ≥ frac · overlap span
+    min_overlap: int = 100
+    end_fuzz: int = 40
+    # transitive reduction
+    tr_fuzz: float = 150.0
+    tr_max_iters: int = 8
+    fused_tr: bool = True
+    align_chunk: int = 4096
+    # consensus polishing of the contig tensor
+    polish: bool = True
+    min_depth: int = 2
+    junction_radius: int = 12
+    # "reference" (plain torch), "cuda" (hand kernels + device contig
+    # path) or "auto" (cuda on a CUDA device, reference on the CPU)
+    backend: str = "auto"
+    distribution: str = "gspmd"
+    mesh: Any = None
+    trace: bool = False
+    # where the pipeline runs; a CUDA device that is absent raises
+    device: str = "cuda"
+
+
+@dataclasses.dataclass
+class AssemblyResult:
+    """Graphs, contigs, stats and stage timings of one ``assemble`` run."""
+
+    r_graph: Any  # overlap matrix R (EllMatrix)
+    s_graph: Any  # string matrix S (EllMatrix)
+    contigs: list  # draft contigs
+    stats: Dict[str, Any]
+    timings: Dict[str, float]
+    contained: Any = None  # (n,) bool
+    consensus: Any = None  # ConsensusResult when cfg.polish
+
+    @functools.cached_property
+    def polished_contigs(self) -> list:
+        """Consensus-polished contigs (the draft when polish is off)."""
+        return self.consensus.to_contigs() if self.consensus else self.contigs
+
+
+def _check_supported(cfg: PipelineConfig) -> None:
+    resolve_distribution(cfg.distribution)
+    if cfg.trace:
+        raise NotImplementedError(
+            "trace=True is not ported yet (ROADMAP.md queue 1, item 9: "
+            "span tracer and Chrome export)"
+        )
+    if cfg.mesh is not None:
+        raise NotImplementedError(
+            "mesh is not ported yet (ROADMAP.md queue 1, item 11)"
+        )
+
+
+def assemble(codes, lengths, cfg: PipelineConfig = PipelineConfig()
+             ) -> AssemblyResult:
+    """Run the whole pipeline on ``cfg.device``: ``codes`` (n, L) uint8 and
+    ``lengths`` (n,) int32 (numpy arrays or tensors)."""
+    _check_supported(cfg)
+    device = resolve_device(cfg.device)
+    with Watermark(device) as wm:
+        res = _assemble(codes, lengths, cfg, device)
+    res.stats.update(validated({
+        "peak_hbm_bytes": wm.peak_hbm_bytes,
+        "hbm_bytes_in_use": wm.hbm_bytes_in_use,
+        "hbm_source": wm.source,
+    }, context="assemble"))
+    return res
+
+
+def _align_candidates(codes, lengths, c_mat, n, cfg, backend, device):
+    """The Alignment stage: compact the live candidates of C into a pow-2
+    bucket, extend each pair both ways, scatter back to slot order."""
+    kq = c_mat.capacity
+    pair_i = torch.arange(n, dtype=_I32, device=device)[:, None]
+    pair_i = pair_i.expand(n, kq).reshape(-1)
+    pair_j = c_mat.cols.reshape(-1)
+    cnt = c_mat.vals["cnt"].reshape(-1)
+    apos = c_mat.vals["apos"][..., 0].reshape(-1)
+    bpos = c_mat.vals["bpos"][..., 0].reshape(-1)
+    pv = (pair_j > pair_i) & (cnt >= cfg.min_shared_kmers)
+
+    pa = torch.div(apos, 2, rounding_mode="floor")
+    ca = torch.remainder(apos, 2)
+    pb = torch.div(bpos, 2, rounding_mode="floor")
+    cb = torch.remainder(bpos, 2)
+    strand = torch.where(pv, ca ^ cb, 0)
+    li = lengths[torch.where(pv, pair_i, 0).to(torch.int64)]
+    lj = lengths[torch.where(pv, pair_j, 0).to(torch.int64)]
+    pb_or = torch.where(strand == 1, lj - cfg.k - pb, pb)
+
+    # candidate compaction: align only the live slots, padded to the next
+    # power of two of their count, then scatter back to slot order
+    e_total = int(pair_i.shape[0])
+    n_live = int(torch.sum(pv))
+    bucket = next_pow2(n_live)
+    idx = torch.zeros(bucket, dtype=torch.int64, device=device)
+    idx[:n_live] = torch.nonzero(pv).reshape(-1)
+    live = torch.arange(bucket, device=device) < n_live
+    cand = {
+        "i": pair_i[idx],
+        "j": pair_j[idx],
+        "li": li[idx],
+        "lj": lj[idx],
+        "pa": torch.clamp(pa[idx], min=0),
+        "pb": torch.clamp(pb_or[idx], min=0),
+        "strand": strand[idx],
+    }
+
+    def _align_block(blk):
+        ai = codes[blk["i"].to(torch.int64)]
+        bj = codes[blk["j"].to(torch.int64)]
+        bj = torch.where((blk["strand"] == 1)[:, None],
+                         revcomp(bj, blk["lj"]), bj)
+        out = al.batch_extend(
+            ai, blk["li"], bj, blk["lj"], blk["pa"], blk["pb"],
+            k=cfg.k, backend=backend, xdrop=cfg.xdrop, match=cfg.match,
+            mismatch=cfg.mismatch, gap=cfg.gap, band=cfg.band,
+            max_steps=cfg.max_steps,
+        )
+        return tuple(out), None
+
+    res_b, _ = map_row_blocks(_align_block, cand, n_rows=bucket,
+                              row_chunk=min(cfg.align_chunk, bucket))
+    slots = idx[live]
+
+    def _scatter(x):
+        buf = torch.zeros((e_total,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=device)
+        buf[slots] = x[live]
+        return buf
+
+    res = al.PairAlignment(*(_scatter(x) for x in res_b))
+    return pair_i, pair_j, pv, strand, li, lj, res, n_live, e_total, bucket
+
+
+def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
+    codes = torch.as_tensor(codes).to(device=device, dtype=torch.uint8)
+    lengths = torch.as_tensor(lengths).to(device=device, dtype=_I32)
+    n = codes.shape[0]
+    backend = resolve_backend(cfg.backend, device)
+    timings: Dict[str, float] = {}
+    metrics = Metrics(context="assemble")
+    metrics.emit("n_reads", int(n))
+    metrics.emit("backend", backend)
+
+    # --- CountKmer ---
+    with stage_timer(timings, "CountKmer", device):
+        kmers = extract_kmers(codes, lengths, k=cfg.k)
+        kc = count_and_select(kmers, lower=cfg.lower, upper=cfg.upper)
+        del kmers
+    metrics.emit_many({
+        "m_reliable": int(kc.m_reliable),
+        "n_unique_kmers": int(kc.n_unique),
+        "n_singletons": int(kc.n_singleton),
+    })
+    if int(kc.m_reliable) > cfg.m_capacity:
+        raise ValueError(
+            f"m_capacity too small: {int(kc.m_reliable)} > {cfg.m_capacity}")
+
+    # --- CreateSpMat: A and Aᵀ ---
+    with stage_timer(timings, "CreateSpMat", device):
+        a, at, ovf_a, _ = build_matrices(
+            kc, n_reads=int(n), m_capacity=cfg.m_capacity,
+            read_capacity=cfg.read_capacity, kmer_capacity=cfg.upper,
+        )
+        del kc
+    metrics.emit("overflow_A", int(ovf_a))
+    metrics.emit("nnz_A", int(a.nnz()))
+
+    # --- SpGEMM: C = A·Aᵀ under the overlap semiring ---
+    with stage_timer(timings, "SpGEMM", device):
+        c_mat, ovf_c = spgemm(a, at, semiring=overlap_semiring,
+                              capacity=cfg.overlap_capacity)
+        del a, at
+    metrics.emit("overlap_distribution", "gspmd")
+    metrics.seed_zero("summa_exchange")
+    metrics.emit("overflow_C", int(ovf_c))
+    metrics.emit("nnz_C", int(c_mat.nnz()))
+    metrics.emit("c_density", metrics["nnz_C"] / max(1, int(n)))
+
+    # --- Pairwise alignment on nnz(C) (upper triangle; each pair once) ---
+    with stage_timer(timings, "Alignment", device):
+        (pair_i, pair_j, pv, strand, li, lj, res, n_live, e_total,
+         bucket) = _align_candidates(codes, lengths, c_mat, n, cfg, backend,
+                                     device)
+    metrics.emit("align_distribution", "gspmd")
+    ospan = torch.minimum(res.ei - res.bi, res.ej - res.bj)
+    frac = torch.tensor(cfg.score_frac, dtype=torch.float32, device=device)
+    passed = (pv & (res.score.to(torch.float32) >= frac * ospan.to(torch.float32))
+              & (ospan >= cfg.min_overlap))
+    metrics.seed_zero("align_exchange")
+    metrics.emit_many({
+        "n_aligned": n_live,
+        "align_candidates": e_total,
+        "align_bucket": int(bucket),
+        "n_passed": int(torch.sum(passed)),
+    })
+
+    # --- Build R: classify overlaps, drop contained ---
+    with stage_timer(timings, "BuildR", device):
+        cls = classify_overlaps(res.bi, res.ei, li, res.bj, res.ej, lj, strand,
+                                end_fuzz=cfg.end_fuzz)
+        r_mat, contained, ovf_r = build_overlap_graph(
+            pair_i, pair_j, cls, passed, n_reads=int(n),
+            capacity=cfg.r_capacity,
+        )
+        r_mat = drop_contained(r_mat, contained)
+    metrics.emit("overflow_R", int(ovf_r))
+    metrics.emit("nnz_R", int(r_mat.nnz()))
+    metrics.emit("r_density", metrics["nnz_R"] / max(1, int(n)))
+    metrics.emit("n_contained", int(torch.sum(contained)))
+
+    # --- TrReduction: Algorithm 2 ---
+    with stage_timer(timings, "TrReduction", device):
+        tr = transitive_reduction_fused if cfg.fused_tr else transitive_reduction
+        s_mat, tr_stats = tr(r_mat, fuzz=cfg.tr_fuzz,
+                             max_iters=cfg.tr_max_iters, backend=backend)
+    metrics.emit("tr_iterations", int(tr_stats.iterations))
+    # the path that ran: the fused variant downgrades "cuda" to the ELL
+    # square above TR_DENSE_MAX_ROWS
+    metrics.emit("tr_backend", tr_stats.backend)
+    metrics.emit("tr_overflow", int(tr_stats.n_overflow))
+    metrics.emit("nnz_S", int(s_mat.nnz()))
+    metrics.emit("s_density", metrics["nnz_S"] / max(1, int(n)))
+
+    # --- Contigs (host walk or device path) ---
+    with stage_timer(timings, "Contigs", device):
+        cset = generate_contigs(s_mat, codes, lengths, contained,
+                                backend=backend, distribution=cfg.distribution)
+        contigs = cset.to_contigs()
+        cs = contig_stats(contigs)
+    metrics.emit("contigs", dataclasses.asdict(cs))
+    metrics.emit("n_branch_cut", cset.stats["n_branch_cut"])
+    metrics.emit("cc_iterations", cset.stats["cc_iterations"])
+    metrics.emit("distribution", cset.stats["distribution"])
+    metrics.emit_many({
+        key: val for key, val in cset.stats.items()
+        if key.startswith("exchange_")
+    })
+    metrics.seed_zero("contig_exchange")
+
+    # --- Consensus: pileup polishing of the contig tensor ---
+    cres = None
+    if cfg.polish:
+        with stage_timer(timings, "Consensus", device):
+            cres = polish_contig_set(
+                cset, codes, lengths, backend=backend,
+                min_depth=cfg.min_depth, junction_radius=cfg.junction_radius,
+            )
+        metrics.emit_many({
+            "consensus_depth_mean": cres.stats["consensus_depth_mean"],
+            "identity_estimate": cres.stats["identity_estimate"],
+            "qv_estimate": cres.stats["qv_estimate"],
+            "consensus_changed": cres.stats["n_changed"],
+            "n_junction_shifted": cres.stats["n_junction_shifted"],
+        })
+
+    return AssemblyResult(
+        r_graph=r_mat, s_graph=s_mat, contigs=contigs,
+        stats=metrics.as_dict(), timings=timings, contained=contained,
+        consensus=cres,
+    )

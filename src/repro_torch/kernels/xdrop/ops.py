@@ -1,0 +1,70 @@
+"""Wrapper of the x-drop kernel (``csrc/xdrop.cu``) + dispatch registration.
+
+``xdrop_extend_batch`` launches the CUDA kernel for CUDA tensors and runs
+the plain version (``ref.py``) for CPU tensors; a CUDA request it cannot
+launch raises.  Both backends of the ``xdrop_extend`` op share one
+signature.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...core.backend import register_op
+from ..build import CudaKernel, check_cuda, check_dtype, stream_handle
+from .ref import xdrop_extend_batch_ref
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+KERNEL = CudaKernel("xdrop", [
+    _P, _I, _P, _P, _P,  # a, lda, base_a, step_a, len_a
+    _P, _I, _P, _P, _P,  # b, ldb, base_b, step_b, len_b
+    _I, _I, _I, _I, _I, _I, _I,  # e, band, max_steps, xdrop, match, mismatch, gap
+    _P, _P, _P, _P,  # score, ai, bj, stream
+])
+MAX_BAND = 256  # 8 cells per lane
+
+
+def xdrop_extend_batch(a, base_a, step_a, len_a, b, base_b, step_b, len_b, *,
+                       xdrop: int = 15, match: int = 1, mismatch: int = -1,
+                       gap: int = -1, band: int = 33, max_steps: int = 256):
+    """Batched single-direction x-drop extension: ``a`` (E, LA) and ``b``
+    (E, LB) uint8, bases/steps/lengths (E,) int32 → (score, ai, bj) (E,)
+    int32."""
+    args = dict(a=a, base_a=base_a, step_a=step_a, len_a=len_a, b=b,
+                base_b=base_b, step_b=step_b, len_b=len_b)
+    if all(t.device.type == "cpu" for t in args.values()):
+        return xdrop_extend_batch_ref(
+            a, base_a, step_a, len_a, b, base_b, step_b, len_b, xdrop=xdrop,
+            match=match, mismatch=mismatch, gap=gap, band=band,
+            max_steps=max_steps,
+        )
+    dev = check_cuda("xdrop", **args)
+    e = a.shape[0]
+    for key in ("a", "b"):
+        check_dtype("xdrop", args[key], torch.uint8, key)
+        if args[key].dim() != 2 or args[key].shape[0] != e:
+            raise ValueError(f"xdrop: {key} must be (E, L), got {tuple(args[key].shape)}")
+    for key in ("base_a", "step_a", "len_a", "base_b", "step_b", "len_b"):
+        check_dtype("xdrop", args[key], torch.int32, key)
+        if tuple(args[key].shape) != (e,):
+            raise ValueError(f"xdrop: {key} must be ({e},), got {tuple(args[key].shape)}")
+    if not 1 <= band <= MAX_BAND:
+        raise ValueError(f"xdrop: band must be in [1, {MAX_BAND}], got {band}")
+    score, ai, bj = (torch.empty(e, dtype=torch.int32, device=dev)
+                     for _ in range(3))
+    if e == 0:
+        return score, ai, bj
+    KERNEL.launch(
+        a.data_ptr(), a.shape[1], base_a.data_ptr(), step_a.data_ptr(),
+        len_a.data_ptr(), b.data_ptr(), b.shape[1], base_b.data_ptr(),
+        step_b.data_ptr(), len_b.data_ptr(), e, band, max_steps, xdrop, match,
+        mismatch, gap, score.data_ptr(), ai.data_ptr(), bj.data_ptr(),
+        stream_handle(a),
+    )
+    return score, ai, bj
+
+
+register_op("xdrop_extend", "cuda", xdrop_extend_batch)
+register_op("xdrop_extend", "reference", xdrop_extend_batch_ref)

@@ -1,0 +1,94 @@
+"""The port's CUDA kernels on the card, each against its plain version.
+
+Marked ``cuda``: they need an NVIDIA card and ``nvcc`` and skip elsewhere
+(the decision is made inside the ``card`` fixture, never at import).  On
+the card: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.assembly.pipeline import PipelineConfig, assemble
+from repro_torch.assembly.simulate import simulate_genome, simulate_reads
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("band,direction", [(9, 1), (33, -1), (65, 1), (97, -1)])
+def test_xdrop_kernel_matches_plain(card, band, direction):
+    rng = np.random.default_rng(band)
+    e, la, lb = 37, 150, 130
+    a = rng.integers(0, 4, (e, la)).astype(np.uint8)
+    b = a[:, :lb].copy()
+    b = np.where(rng.random(b.shape) < 0.08, (b + 1) % 4, b).astype(np.uint8)
+    la_ = rng.integers(10, la + 1, e).astype(np.int32)
+    lb_ = rng.integers(10, lb + 1, e).astype(np.int32)
+    base_a = np.zeros(e, np.int32) if direction == 1 else la_ - 1
+    base_b = np.zeros(e, np.int32) if direction == 1 else lb_ - 1
+    step = np.full(e, direction, np.int32)
+    args = [torch.from_numpy(np.array(x)).to(card)
+            for x in (a, base_a, step, la_, b, base_b, step, lb_)]
+    kw = dict(band=band, max_steps=la + lb, xdrop=25)
+    got = K.xdrop_extend_batch(*args, **kw)
+    want = K.xdrop_extend_batch_ref(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (65, 33, 47), (200, 130, 70)])
+def test_minplus_kernel_matches_plain(card, m, k, n):
+    g = torch.Generator().manual_seed(m + n)
+    a = torch.randint(1, 500, (m, k, 4), generator=g).float()
+    b = torch.randint(1, 500, (k, n, 4), generator=g).float()
+    a[torch.rand(a.shape, generator=g) < 0.6] = float("inf")
+    b[torch.rand(b.shape, generator=g) < 0.6] = float("inf")
+    a, b = a.to(card), b.to(card)
+    assert torch.equal(K.minplus_matmul(a, b), K.minplus_matmul_ref(a, b))
+
+
+def test_pileup_kernel_matches_plain(card):
+    rng = np.random.default_rng(3)
+    c, m, l, lr = 3, 9, 700, 300
+    draft = rng.integers(0, 4, (c, l)).astype(np.uint8)
+    start = rng.integers(-50, l - 50, (c, m)).astype(np.int32)
+    plen = rng.integers(0, lr + 1, (c, m)).astype(np.int32)
+    pieces = np.zeros((c, m, lr), np.uint8)
+    for i in range(c):
+        for t in range(m):
+            cols = np.clip(start[i, t] + np.arange(lr), 0, l - 1)
+            pieces[i, t] = draft[i, cols]
+    pieces = np.where(rng.random(pieces.shape) < 0.05, (pieces + 1) % 4, pieces)
+    args = [torch.from_numpy(np.array(x)).to(card)
+            for x in (draft, pieces.astype(np.uint8), start, plen)]
+    for md in (1, 2, 3):
+        got = K.pileup_vote(*args, min_depth=md)
+        want = K.pileup_vote_ref(*args, min_depth=md)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_assemble_on_card_matches_reference_backend(card):
+    genome = simulate_genome(np.random.default_rng(0), 20000)
+    rs = simulate_reads(genome, depth=10, mean_len=1000, std_len=150,
+                        error_rate=0.03, seed=1)
+    cfg = PipelineConfig(m_capacity=1 << 17, upper=40, read_capacity=96,
+                         band=33, xdrop=25, device="cuda")
+    K.reset_launch_counts()
+    res = assemble(rs.codes, rs.lengths, cfg)
+    assert all(v > 0 for v in K.launch_counts().values())
+    ref = assemble(rs.codes, rs.lengths,
+                   PipelineConfig(**{**cfg.__dict__, "backend": "reference"}))
+    for key in ("n_aligned", "n_passed", "nnz_R", "nnz_S", "tr_iterations",
+                "contigs", "consensus_changed"):
+        assert res.stats[key] == ref.stats[key], key
+    assert [c.reads for c in res.polished_contigs] == [
+        c.reads for c in ref.polished_contigs]
