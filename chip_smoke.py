@@ -15,10 +15,23 @@ exit, no result line) on any check that does not hold:
              1400, sd 250, 5 % error, 60 % indels; about 4000 reads, the
              largest run on which the dense min-plus kernel still runs).
              The launch counts are set to 0 just before and read just
-             after: every kernel must have run;
+             after: every kernel of the path (xdrop, minplus, pileup) must
+             have run;
+3b. shard_map — a 1-rank NCCL process group (in-process store), then,
+             after a 20 kb warm-up of its own, ``assemble(distribution=
+             "shard_map")`` on the same reads: the ring SUMMA, the
+             distributed alignment and contig chain stage on a 1×1 grid.
+             Its counts are read the same way: spgemm, xdrop, minplus and
+             pileup must have run, and R, S, the stats (but path and
+             exchange keys) and the polished contigs must equal phase 3's.
+             Then ``dist_transitive_reduction_ring`` on phase 3's R must
+             give the S of the local Algorithm 2 (min-plus spgemm launches);
 4. kernels — each kernel against its plain PyTorch version on the card, at
              the main path's own inputs, exact equality; CUDA-event times of
-             both and the least time the card could take (``bound_ms``);
+             both and the least time the card could take (``bound_ms``).
+             spgemm is held on three inputs: the shard_map run's overlap
+             launch, the four stage panels rank (0, 0) of a 4×4 grid holds
+             (non-zero offsets) and the distributed TR's first launch;
 5. parity  — ``assemble(backend="reference")`` (plain torch ops and the host
              contig walk) on the card: R, S, every stats key but the timing,
              memory and path labels, and the polished contigs must be equal.
@@ -39,11 +52,14 @@ import subprocess
 import sys
 import time
 
-KERNEL_NAMES = ("xdrop", "minplus", "pileup")
+KERNEL_NAMES = ("xdrop", "minplus", "pileup", "spgemm")
+# the kernels of each path: the single-device path does not run spgemm
+GSPMD_KERNELS = ("xdrop", "minplus", "pileup")
 REPLACES = {
     "xdrop": "src/repro/kernels/xdrop/xdrop.py:105",
     "minplus": "src/repro/kernels/minplus/minplus.py:54",
     "pileup": "src/repro/kernels/pileup/pileup.py:106",
+    "spgemm": "src/repro/kernels/spgemm/spgemm.py:133",
 }
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; f32 add/min
 # instructions/s (67 TFLOP/s counts an FMA as two); int32 operations/s
@@ -54,6 +70,12 @@ I32_OPS_S = 67e12 / 4
 # stats keys that name the path or measure time/memory, not the result
 PATH_KEYS = ("backend", "tr_backend", "distribution", "cc_iterations",
              "peak_hbm_bytes", "hbm_bytes_in_use", "hbm_source")
+# keys the shard_map run adds or sets by its path: the distributions, the
+# ring SUMMA's, and the exchange and round-trip counts
+SHARD_MAP_KEYS = ("overlap_distribution", "align_distribution",
+                  "summa_algorithm", "summa_stages", "summa_backend",
+                  "spgemm_hbm_round_trips",
+                  "spgemm_hbm_round_trips_reference")
 
 
 def fail(msg: str) -> None:
@@ -111,10 +133,14 @@ def main() -> None:
     try:
         from repro_torch import kernels as K
         from repro_torch.assembly import simulate as sim
+        from repro_torch.assembly.counter import first_semiring
         from repro_torch.assembly.pipeline import PipelineConfig, assemble
         from repro_torch.core import backend as B
+        from repro_torch.core import summa as SU
+        from repro_torch.core.grid import ProcessGrid
         from repro_torch.core.semiring import MP, minplus_orient_semiring
         from repro_torch.core.spmat import ell_equal
+        from repro_torch.core.transitive_reduction import transitive_reduction
         from repro_torch.kernels.build import BUILD_LOG, build_all
     except ImportError as e:
         fail(f"the repository's src/repro_torch is not beside this script: {e}")
@@ -159,7 +185,8 @@ def main() -> None:
             return fn(*a, **kw)
         return wrapped
 
-    for op, keep in (("xdrop_extend", 2), ("consensus", 1)):
+    for op, keep in (("xdrop_extend", 2), ("consensus", 1),
+                     ("spgemm_ring_stages", 1)):
         B.register_op(op, "cuda", capture(op, B.dispatch(op, "cuda"), keep))
 
     # cold start (CUDA context, lazily loaded library kernels, allocator
@@ -185,7 +212,7 @@ def main() -> None:
     print("[main] stats: " + json.dumps(st))
     print(f"[main] peak device memory {st['peak_hbm_bytes']} bytes "
           f"({st['hbm_source']}); launches {json.dumps(launches)}", flush=True)
-    for name in KERNEL_NAMES:
+    for name in GSPMD_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched on the main path")
     check(st["backend"] == "cuda", f"backend {st['backend']!r}")
     check(st["tr_backend"] == "cuda", f"tr_backend {st['tr_backend']!r}")
@@ -196,6 +223,83 @@ def main() -> None:
     check(all(np.isfinite(st[k]) for k in ("identity_estimate", "qv_estimate",
                                             "consensus_depth_mean")),
           "non-finite quality estimate")
+
+    # --- 3b. shard_map ---
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        sm_cfg = dataclasses.replace(cfg, distribution="shard_map")
+        t0 = time.perf_counter()
+        assemble(small.codes, small.lengths, sm_cfg)
+        torch.cuda.synchronize()
+        print(f"[shard_map] warm-up on {small.n_reads} reads: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        captured.pop("spgemm_ring_stages", None)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res_sm = assemble(reads.codes, reads.lengths, sm_cfg)
+        torch.cuda.synchronize()
+        wall_sm = time.perf_counter() - t0
+        sm_launches = K.launch_counts()
+        ss = res_sm.stats
+        print(f"[shard_map] assemble {wall_sm:.2f} s on a "
+              f"{ProcessGrid.square().pr}x{ProcessGrid.square().pc} grid; "
+              "stages (s): "
+              + json.dumps({k: round(v, 4) for k, v in res_sm.timings.items()}))
+        print("[shard_map] stats: " + json.dumps(ss))
+        print(f"[shard_map] peak device memory {ss['peak_hbm_bytes']} bytes; "
+              f"launches {json.dumps(sm_launches)}", flush=True)
+        for name in KERNEL_NAMES:
+            check(sm_launches[name] > 0,
+                  f"kernel {name} was not launched on the shard_map path")
+        check(ss["summa_backend"] == "cuda", f"summa_backend {ss['summa_backend']!r}")
+        for key in ("overlap_distribution", "align_distribution", "distribution"):
+            check(ss[key] == "shard_map", f"{key} {ss[key]!r}")
+        check(ell_equal(res.r_graph, res_sm.r_graph), "R differs: shard_map vs gspmd")
+        check(ell_equal(res.s_graph, res_sm.s_graph), "S differs: shard_map vs gspmd")
+        skip = set(PATH_KEYS) | set(SHARD_MAP_KEYS)
+        diff = [k for k in st if k not in skip and not k.startswith("exchange_")
+                and st[k] != ss.get(k)]
+        check(not diff, f"stats differ between shard_map and gspmd: {diff}")
+        a, b = res.polished_contigs, res_sm.polished_contigs
+        check(len(a) == len(b) and all(
+            x.reads == y.reads and np.array_equal(x.codes, y.codes)
+            for x, y in zip(a, b)), "polished contigs differ: shard_map vs gspmd")
+        print(f"[shard_map] == gspmd: R, S, "
+              f"{len([k for k in st if k not in skip and not k.startswith('exchange_')])}"
+              f" stats keys, {len(a)} polished contigs", flush=True)
+        cap_overlap = captured.pop("spgemm_ring_stages")[0]
+
+        # the distributed transitive reduction on phase 3's R, 1x1 grid
+        grid = ProcessGrid.square()
+        r_mat = res.r_graph
+        rd, _ = SU.distribute_ell_blocks(
+            r_mat, block_capacity=r_mat.capacity,
+            semiring=minplus_orient_semiring, mesh=grid)
+        nbc = min(r_mat.capacity ** 2, 4 * r_mat.capacity)
+        before = K.KERNELS["spgemm"].launches
+        t0 = time.perf_counter()
+        s_d, tr_it, tr_nnz, tr_st = SU.dist_transitive_reduction_ring(
+            rd, cfg.tr_fuzz, n_block_capacity=nbc, max_iters=cfg.tr_max_iters)
+        torch.cuda.synchronize()
+        tr_wall = time.perf_counter() - t0
+        tr_launches = K.KERNELS["spgemm"].launches - before
+        s_local, _ = transitive_reduction(r_mat, fuzz=cfg.tr_fuzz,
+                                          n_capacity=nbc,
+                                          max_iters=cfg.tr_max_iters)
+        s_ring = SU.collect(s_d)
+        check(tr_launches == tr_it, f"dist TR: {tr_launches} spgemm launches "
+              f"for {tr_it} iterations")
+        check(ell_equal(s_ring, s_local), "dist TR ring S differs from the local TR")
+        print(f"[shard_map] dist_transitive_reduction_ring: {tr_wall:.3f} s, "
+              f"{tr_it} iterations, nnz {tr_nnz}, {tr_launches} spgemm launches; "
+              f"== local TR; == the pipeline's S: "
+              f"{ell_equal(s_ring, res.s_graph)}", flush=True)
+        cap_tr = captured.pop("spgemm_ring_stages")[0]
+    finally:
+        dist.destroy_process_group()
 
     # --- 4. kernels ---
     records = []
@@ -279,7 +383,88 @@ def main() -> None:
            lambda: K.pileup_vote(draft, pieces, start, plen, min_depth=mdep),
            lambda: K.pileup_vote_ref(draft, pieces, start, plen, min_depth=mdep),
            bytes_, ops, I32_OPS_S)
-    del captured, got, want
+
+    # spgemm: the shard_map run's overlap launch, rank (0, 0)'s four stage
+    # panels on a 4x4 grid, and the distributed TR's first launch
+    def spgemm_case(label, args, kw):
+        got = K.spgemm_ring_stages(*args, **kw)
+        want = K.spgemm_ring_stages_ref(*args, **kw)
+        for key in want[1]:
+            check(torch.equal(got[1][key], want[1][key]),
+                  f"spgemm ({label}): {key} differs from the plain version")
+        check(torch.equal(got[0], want[0]) and int(got[2]) == int(want[2]),
+              f"spgemm ({label}): cols or overflow differ from the plain version")
+        offsets, a_cols, a_vals, b_cols, b_vals = args
+        stages, n_a, ka = a_cols.shape
+        nb = b_cols.shape[1]
+        # candidates that exist: a live A slot in range times the live B
+        # slots of the row it selects; a sort of V keys needs V log2 V
+        # comparisons at the least
+        reb = a_cols.long() - offsets.long()[:, None, None]
+        live_a = (a_cols >= 0) & (reb >= 0) & (reb < nb)
+        b_live = (b_cols >= 0).sum(-1)  # (S, nb)
+        sidx = torch.arange(stages, device=a_cols.device)[:, None, None]
+        per = torch.where(live_a, b_live[sidx, reb.clamp(0, nb - 1)], 0)
+        v = per.sum(-1).double()  # (S, n) candidates per row
+        lg = torch.ceil(torch.log2(v.clamp(min=1)))
+        cmp_ops = float((v * lg).sum())
+        n_cand = float(v.sum())
+        if kw["semiring"].name == "minplus_orient":
+            # (x): 8 adds + 4 mins, (+): 4 mins a candidate
+            t_ops = 16 * n_cand / F32_OPS_S + (cmp_ops + n_cand) / I32_OPS_S
+        else:  # (+): a count add and the pair selection
+            t_ops = (cmp_ops + 2 * n_cand) / I32_OPS_S
+        tensors = [offsets, a_cols, b_cols, *a_vals.values(), *b_vals.values(),
+                   got[0], *got[1].values()]
+        t_bytes = sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_S
+        out = {
+            "input": label, "stages": stages, "rows": n_a, "k_a": ka,
+            "k_b": b_cols.shape[2], "candidates": int(n_cand),
+            "max_abs_err": 0,  # exact: any difference failed above
+            "ms": time_ms(lambda: K.spgemm_ring_stages(*args, **kw), 5),
+            "plain_ms": time_ms(lambda: K.spgemm_ring_stages_ref(*args, **kw), 1),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        print(f"[kernels] spgemm {json.dumps(out)}", flush=True)
+        return out
+
+    ov_args, ov_kw = cap_overlap
+    sp_main = spgemm_case("shard_map overlap launch, 1x1 grid", ov_args, ov_kw)
+    # rank (0, 0) of a 4x4 grid: stage s holds A block (0, s) and B block
+    # (s, 0) of the Cannon-skewed block layouts of A and At
+    _, a_cols, a_vals, b_cols, b_vals = ov_args
+    a_full = SU.EllMatrix(cols=a_cols[0], vals={k: v[0] for k, v in a_vals.items()},
+                          n_cols=cfg.m_capacity)
+    b_full = SU.EllMatrix(cols=b_cols[0], vals={k: v[0] for k, v in b_vals.items()},
+                          n_cols=ov_kw["n_cols_out"])
+    q = 4
+    a_g, _ = SU.block_layout(a_full, pc=q, block_capacity=a_full.capacity,
+                             semiring=first_semiring)
+    b_g, _ = SU.block_layout(b_full, pc=q, block_capacity=b_full.capacity,
+                             semiring=first_semiring)
+    a_sk, b_sk = SU._skew_a(a_g, q, q), SU._skew_b(b_g, q, q)
+    a_p = [SU.local_block(a_sk, q, q, 0, t) for t in range(q)]
+    b_p = [SU.local_block(b_sk, q, q, t, 0) for t in range(q)]
+    nb4 = b_g.cols.shape[0] // q
+    args4 = (torch.arange(q, dtype=torch.int32, device=a_cols.device) * nb4,
+             torch.stack([p.cols for p in a_p]),
+             {k: torch.stack([p.vals[k] for p in a_p]) for k in a_vals},
+             torch.stack([p.cols for p in b_p]),
+             {k: torch.stack([p.vals[k] for p in b_p]) for k in b_vals})
+    del a_g, b_g, a_sk, b_sk, a_p, b_p
+    sp_s4 = spgemm_case("rank (0, 0) of a 4x4 grid, S = 4", args4, ov_kw)
+    sp_tr = spgemm_case("dist TR first launch, min-plus orient", *cap_tr)
+    records.append({
+        "name": "spgemm", "route": "cuda",
+        "source": "src/repro_torch/csrc/spgemm.cu",
+        "replaces": REPLACES["spgemm"], "launches": sm_launches["spgemm"],
+        "max_abs_err": 0,
+        "ms": sp_main["ms"], "plain_ms": sp_main["plain_ms"],
+        "bound_ms": sp_main["bound_ms"], "bound_by": sp_main["bound_by"],
+        "library_ms": None, "variants": [sp_s4, sp_tr],
+    })
+    del captured, got, want, cap_overlap, cap_tr, args4
 
     # --- 5. parity ---
     t0 = time.perf_counter()

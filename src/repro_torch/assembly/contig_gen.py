@@ -1,7 +1,8 @@
 """Device-side contig generation (DESIGN.md §2.7), in torch.
 
-The PyTorch counterpart of the single-device (``distribution="gspmd"``)
-path of ``repro.assembly.contig_gen``:
+The PyTorch counterpart of ``repro.assembly.contig_gen``'s device path
+(its ``distribution="shard_map"`` chain stage is
+``core/components_dist.py``):
 
 1. expand S into the 2n-vertex state graph;
 2. branch cut: keep edge u→v iff out-degree(u) == 1 and in-degree(v) == 1;
@@ -150,11 +151,20 @@ def _order_chains(cut, dbl):
     }
 
 
-def _chain_state(s: EllMatrix, *, distribution: str = "gspmd"):
+def _chain_state(s: EllMatrix, *, distribution: str = "gspmd", mesh=None):
     """Graph cut → doubling → chain ordering.  Returns ``(st,
-    dist_stats)``; the exchange accounting is present-and-zero (no explicit
-    exchange runs on one device)."""
-    resolve_distribution(distribution)
+    dist_stats)``.
+
+    ``"gspmd"`` runs the single-device path, with the exchange accounting
+    present and zero; ``"shard_map"`` runs all three sub-stages over the
+    grid rows of ``mesh`` (default: every rank a grid row) in
+    ``core/components_dist.contig_stage_shard_map``, with its measured
+    per-phase words and rounds."""
+    if resolve_distribution(distribution) == "shard_map":
+        from ..core.components_dist import contig_stage_shard_map
+
+        st, xstats = contig_stage_shard_map(s, mesh=mesh)
+        return st, {**ZERO_EXCHANGE_STATS, **xstats}
     cut = _graph_cut(s)
     st = _order_chains(cut, _doubling_local(cut["succ0"], cut["pred0"]))
     return st, dict(ZERO_EXCHANGE_STATS)
@@ -302,14 +312,15 @@ def _gather_codes(st, lay, codes, lengths, *, c: int, l: int):
 
 
 def _device_contig_gen(s_mat, codes, lengths, contained=None, *,
-                       distribution: str = "gspmd") -> ContigSet:
+                       distribution: str = "gspmd", mesh=None) -> ContigSet:
     """Device array path of the ``contig_gen`` op."""
     codes = codes.to(torch.uint8)
     lengths = lengths.to(_I32)
     n = codes.shape[0]
     contained = (torch.zeros(n, dtype=torch.bool, device=codes.device)
                  if contained is None else contained.to(torch.bool))
-    st, dist_stats = _chain_state(s_mat, distribution=distribution)
+    st, dist_stats = _chain_state(s_mat, distribution=distribution,
+                                  mesh=mesh)
     ca = next_pow2(int(st["n_chains"]))
     m = next_pow2(int(st["max_chain"]))
     lay = _chain_layout(st, lengths, contained, ca=ca, m=m)
@@ -332,10 +343,11 @@ def _device_contig_gen(s_mat, codes, lengths, contained=None, *,
 
 
 def _reference_contig_gen(s_mat, codes, lengths, contained=None, *,
-                          distribution: str = "gspmd") -> ContigSet:
+                          distribution: str = "gspmd", mesh=None
+                          ) -> ContigSet:
     """Host walk (``contigs.py``) packed into the ContigSet contract; its
     stats report ``distribution="host"``."""
-    del distribution
+    del distribution, mesh
     dev = codes.device
     codes_np = codes.cpu().numpy()
     lengths_np = lengths.cpu().numpy()
@@ -393,11 +405,12 @@ register_op("contig_gen", "cuda", _device_contig_gen)
 
 
 def generate_contigs(s_mat, codes, lengths, contained=None, *,
-                     backend: str = "auto", distribution: str = "gspmd"
-                     ) -> ContigSet:
+                     backend: str = "auto", distribution: str = "gspmd",
+                     mesh=None) -> ContigSet:
     """Contigs stage entry point: the registered ``contig_gen`` backend on
-    string matrix S (``"reference"`` host walk, ``"cuda"`` device path)."""
+    string matrix S (``"reference"`` host walk, ``"cuda"`` device path,
+    whose chain stage ``distribution="shard_map"`` runs over ``mesh``)."""
     return dispatch("contig_gen", backend, codes.device)(
         s_mat, codes, lengths, contained,
-        distribution=resolve_distribution(distribution),
+        distribution=resolve_distribution(distribution), mesh=mesh,
     )

@@ -5,14 +5,24 @@
           → transitive reduction (Algorithm 2) → S → contigs
           → consensus (pileup polish)
 
-The PyTorch counterpart of ``repro.assembly.pipeline.assemble`` on one
-device (``distribution="gspmd"``).  It runs on ``PipelineConfig.device``,
-the card by default; ``device="cpu"`` runs the plain-torch path on the CPU.
-With ``backend="cuda"`` (what ``"auto"`` gives on a card) the x-drop,
-min-plus and pileup hot loops are the hand-written kernels of
-``repro_torch.kernels`` and the Contigs stage is the device path.  The stats
-dict carries the keys of the JAX run, with ``"cuda"`` where JAX reports
-``"pallas"``.
+The PyTorch counterpart of ``repro.assembly.pipeline.assemble``.  It runs
+on ``PipelineConfig.device``, the card by default; ``device="cpu"`` runs
+the plain-torch path on the CPU.  With ``backend="cuda"`` (what ``"auto"``
+gives on a card) the x-drop, min-plus, ring-SUMMA stage and pileup hot
+loops are the hand-written kernels of ``repro_torch.kernels`` and the
+Contigs stage is the device path.  The stats dict carries the keys of the
+JAX run, with ``"cuda"`` where JAX reports ``"pallas"``.
+
+``distribution="gspmd"`` is the single-device path.
+``distribution="shard_map"`` runs SpGEMM on the ring SUMMA
+(``core/summa.py``), Alignment on the block-split bucket
+(``core/align_dist.py``) and the Contigs chain stage over the grid rows
+(``core/components_dist.py``), on a ``torch.distributed`` process grid:
+``cfg.mesh`` (a ``core.grid.ProcessGrid``) or, without one, the square
+grid for SpGEMM and the P×1 grid for the other two, as JAX's default
+meshes.  Every rank calls ``assemble`` on the same reads and gets the same
+result; without a process group the grid is 1×1.  As in JAX, TrReduction
+stays local.
 """
 
 from __future__ import annotations
@@ -23,10 +33,13 @@ from typing import Any, Dict
 
 import torch
 
+from ..core.align_dist import align_bucket_shard_map
 from ..core.backend import resolve_backend, resolve_device, resolve_distribution
+from ..core.grid import resolve_grid
 from ..core.semiring import overlap_semiring
 from ..core.spgemm import spgemm
 from ..core.spmat import map_row_blocks, next_pow2
+from ..core.summa import overlap_spgemm_shard_map
 from ..core.string_graph import (
     build_overlap_graph,
     classify_overlaps,
@@ -41,7 +54,7 @@ from . import alignment as al
 from .consensus import polish_contig_set
 from .contig_gen import generate_contigs
 from .contigs import contig_stats
-from .counter import build_matrices, count_and_select
+from .counter import build_matrices, count_and_select, first_semiring
 from .kmers import extract_kmers, revcomp
 
 _I32 = torch.int32
@@ -49,10 +62,10 @@ _I32 = torch.int32
 
 @dataclasses.dataclass
 class PipelineConfig:
-    """Knobs of ``assemble`` — those of the JAX ``PipelineConfig`` that
-    the single-device path reads, plus ``device``.  ``distribution=
-    "shard_map"``, ``mesh`` and ``trace=True`` are not ported yet and
-    raise."""
+    """Knobs of ``assemble`` — those of the JAX ``PipelineConfig`` the
+    port reads, plus ``device``.  ``mesh`` takes a
+    ``core.grid.ProcessGrid`` or ``None``; ``trace=True`` is not ported
+    yet and raises."""
 
     k: int = 15
     lower: int = 2  # reliable k-mer frequency window [lower, upper]
@@ -84,8 +97,11 @@ class PipelineConfig:
     # "reference" (plain torch), "cuda" (hand kernels + device contig
     # path) or "auto" (cuda on a CUDA device, reference on the CPU)
     backend: str = "auto"
+    # "gspmd" (one device) or "shard_map" (explicit exchanges on a
+    # torch.distributed process grid)
     distribution: str = "gspmd"
     mesh: Any = None
+    summa_stages_per_call: int = 4  # ring stages per spgemm kernel launch
     trace: bool = False
     # where the pipeline runs; a CUDA device that is absent raises
     device: str = "cuda"
@@ -117,9 +133,7 @@ def _check_supported(cfg: PipelineConfig) -> None:
             "span tracer and Chrome export)"
         )
     if cfg.mesh is not None:
-        raise NotImplementedError(
-            "mesh is not ported yet (ROADMAP.md queue 1, item 11)"
-        )
+        resolve_grid(cfg.mesh, "square")  # a ProcessGrid, or raise
 
 
 def assemble(codes, lengths, cfg: PipelineConfig = PipelineConfig()
@@ -177,6 +191,28 @@ def _align_candidates(codes, lengths, c_mat, n, cfg, backend, device):
         "strand": strand[idx],
     }
 
+    if cfg.distribution == "shard_map":
+        res_b, align_stats = align_bucket_shard_map(
+            codes, cand, k=cfg.k, mesh=cfg.mesh, backend=backend,
+            xdrop=cfg.xdrop, match=cfg.match, mismatch=cfg.mismatch,
+            gap=cfg.gap, band=cfg.band, max_steps=cfg.max_steps)
+    else:
+        res_b, align_stats = _align_local(codes, cand, bucket, cfg, backend), {}
+    slots = idx[live]
+
+    def _scatter(x):
+        buf = torch.zeros((e_total,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=device)
+        buf[slots] = x[live]
+        return buf
+
+    res = al.PairAlignment(*(_scatter(x) for x in res_b))
+    return (pair_i, pair_j, pv, strand, li, lj, res, n_live, e_total, bucket,
+            align_stats)
+
+
+def _align_local(codes, cand, bucket, cfg, backend):
+    """The single-device x-drop of the bucket, in ``align_chunk`` blocks."""
     def _align_block(blk):
         ai = codes[blk["i"].to(torch.int64)]
         bj = codes[blk["j"].to(torch.int64)]
@@ -192,16 +228,7 @@ def _align_candidates(codes, lengths, c_mat, n, cfg, backend, device):
 
     res_b, _ = map_row_blocks(_align_block, cand, n_rows=bucket,
                               row_chunk=min(cfg.align_chunk, bucket))
-    slots = idx[live]
-
-    def _scatter(x):
-        buf = torch.zeros((e_total,) + tuple(x.shape[1:]), dtype=x.dtype,
-                          device=device)
-        buf[slots] = x[live]
-        return buf
-
-    res = al.PairAlignment(*(_scatter(x) for x in res_b))
-    return pair_i, pair_j, pv, strand, li, lj, res, n_live, e_total, bucket
+    return res_b
 
 
 def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
@@ -239,11 +266,23 @@ def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
     metrics.emit("nnz_A", int(a.nnz()))
 
     # --- SpGEMM: C = A·Aᵀ under the overlap semiring ---
+    shard_map = cfg.distribution == "shard_map"
     with stage_timer(timings, "SpGEMM", device):
-        c_mat, ovf_c = spgemm(a, at, semiring=overlap_semiring,
-                              capacity=cfg.overlap_capacity)
+        if shard_map:
+            c_mat, ovf_c, summa_stats = overlap_spgemm_shard_map(
+                a, at, semiring=overlap_semiring,
+                operand_semiring=first_semiring,
+                capacity=cfg.overlap_capacity, mesh=cfg.mesh,
+                backend=backend, stages_per_call=cfg.summa_stages_per_call)
+        else:
+            c_mat, ovf_c = spgemm(a, at, semiring=overlap_semiring,
+                                  capacity=cfg.overlap_capacity)
         del a, at
-    metrics.emit("overlap_distribution", "gspmd")
+    if shard_map:
+        metrics.emit("overlap_distribution", "shard_map")
+        metrics.emit_many(summa_stats)
+    else:
+        metrics.emit("overlap_distribution", "gspmd")
     metrics.seed_zero("summa_exchange")
     metrics.emit("overflow_C", int(ovf_c))
     metrics.emit("nnz_C", int(c_mat.nnz()))
@@ -251,10 +290,14 @@ def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
 
     # --- Pairwise alignment on nnz(C) (upper triangle; each pair once) ---
     with stage_timer(timings, "Alignment", device):
-        (pair_i, pair_j, pv, strand, li, lj, res, n_live, e_total,
-         bucket) = _align_candidates(codes, lengths, c_mat, n, cfg, backend,
-                                     device)
-    metrics.emit("align_distribution", "gspmd")
+        (pair_i, pair_j, pv, strand, li, lj, res, n_live, e_total, bucket,
+         align_stats) = _align_candidates(codes, lengths, c_mat, n, cfg,
+                                          backend, device)
+    if shard_map:
+        metrics.emit("align_distribution", "shard_map")
+        metrics.emit_many(align_stats)
+    else:
+        metrics.emit("align_distribution", "gspmd")
     ospan = torch.minimum(res.ei - res.bi, res.ej - res.bj)
     frac = torch.tensor(cfg.score_frac, dtype=torch.float32, device=device)
     passed = (pv & (res.score.to(torch.float32) >= frac * ospan.to(torch.float32))
@@ -297,7 +340,8 @@ def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
     # --- Contigs (host walk or device path) ---
     with stage_timer(timings, "Contigs", device):
         cset = generate_contigs(s_mat, codes, lengths, contained,
-                                backend=backend, distribution=cfg.distribution)
+                                backend=backend, distribution=cfg.distribution,
+                                mesh=cfg.mesh)
         contigs = cset.to_contigs()
         cs = contig_stats(contigs)
     metrics.emit("contigs", dataclasses.asdict(cs))

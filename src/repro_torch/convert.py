@@ -37,9 +37,8 @@ def ell_to_numpy(mat: EllMatrix) -> Tuple[np.ndarray, Dict[str, np.ndarray], int
 
 
 # JAX config fields the port has no counterpart for, with their JAX
-# defaults: the TPU pileup kernel's column band and the shard_map SUMMA's
-# stages per launch
-JAX_ONLY_DEFAULTS = {"pileup_band": 512, "summa_stages_per_call": 4}
+# defaults: the TPU pileup kernel's column band
+JAX_ONLY_DEFAULTS = {"pileup_band": 512}
 
 
 def config_from_dict(d: Mapping[str, Any], **overrides) -> PipelineConfig:

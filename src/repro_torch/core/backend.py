@@ -14,8 +14,9 @@ This module decides, per op, which one runs:
 
 The op names and signatures are those of the JAX package's seam
 (``repro.core.backend``): ``xdrop_extend``, ``minplus_dense``,
-``contig_gen`` and ``consensus``.  Registered implementations of one op
-agree exactly, so either may stand for the other.
+``spgemm_ring_stages``, ``contig_gen`` and ``consensus``.  Registered
+implementations of one op agree exactly, so either may stand for the
+other.
 """
 
 from __future__ import annotations
@@ -53,17 +54,13 @@ def resolve_backend(backend: str = "auto", device="cuda") -> str:
 
 
 def resolve_distribution(distribution: str = "gspmd") -> str:
-    """Validate a ``PipelineConfig.distribution`` value.  Only ``"gspmd"``
-    (single device) is ported; ``"shard_map"`` raises."""
+    """Validate a ``PipelineConfig.distribution`` value: ``"gspmd"`` (the
+    single-device path) or ``"shard_map"`` (the explicit-exchange stages on
+    a ``torch.distributed`` process grid, ``core/grid.py``)."""
     if distribution not in DISTRIBUTIONS:
         raise ValueError(
             f"unknown distribution {distribution!r}; "
             f"expected one of {DISTRIBUTIONS}"
-        )
-    if distribution == "shard_map":
-        raise NotImplementedError(
-            "distribution='shard_map' is not ported yet (ROADMAP.md queue 1, "
-            "item 11: explicit-exchange stages on torch.distributed)"
         )
     return distribution
 

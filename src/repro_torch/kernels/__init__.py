@@ -3,6 +3,8 @@
   xdrop/   — banded x-drop alignment wavefront (Alignment)
   minplus/ — dense orientation-resolved min-plus product (TrReduction)
   pileup/  — banded pileup + majority vote (Consensus)
+  spgemm/  — ring-SUMMA local SpGEMM stages (SpGEMM and the distributed
+             transitive reduction under ``distribution="shard_map"``)
 
 Sources are ``repro_torch/csrc/<name>.cu``; ``build.py`` compiles and binds
 them.  Importing this package registers every kernel and its plain version
@@ -16,11 +18,13 @@ from .minplus import KERNEL as _MINPLUS
 from .minplus import minplus_matmul, minplus_matmul_ref  # noqa: F401
 from .pileup import KERNEL as _PILEUP
 from .pileup import pileup_vote, pileup_vote_ref  # noqa: F401
+from .spgemm import KERNEL as _SPGEMM
+from .spgemm import spgemm_ring_stages, spgemm_ring_stages_ref  # noqa: F401
 from .xdrop import KERNEL as _XDROP
 from .xdrop import xdrop_extend_batch, xdrop_extend_batch_ref  # noqa: F401
 
 #: every kernel of the port, by name
-KERNELS = {k.name: k for k in (_XDROP, _MINPLUS, _PILEUP)}
+KERNELS = {k.name: k for k in (_XDROP, _MINPLUS, _PILEUP, _SPGEMM)}
 
 
 def launch_counts() -> Dict[str, int]:

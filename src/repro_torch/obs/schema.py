@@ -70,7 +70,7 @@ def _l(name, desc):
 _SPECS: Tuple[MetricSpec, ...] = (
     # --- pipeline-wide ---
     _c("n_reads", "reads", "input reads"),
-    _l("backend", "resolved kernel backend (reference|pallas)"),
+    _l("backend", "resolved kernel backend (reference|cuda)"),
     # --- device-memory watermark (obs/memory.py) ---
     _c("peak_hbm_bytes", "bytes",
        "device-memory high-water mark over the assemble window "
@@ -91,7 +91,7 @@ _SPECS: Tuple[MetricSpec, ...] = (
     _l("overlap_distribution", "overlap-stage distribution (gspmd|shard_map)"),
     _l("summa_algorithm", "SUMMA variant that ran (ring|allgather_fallback)"),
     _l("summa_fallback_reason", "why the ring routed to all-gather"),
-    _l("summa_backend", "ring-stage op backend that ran (reference|pallas)"),
+    _l("summa_backend", "ring-stage op backend that ran (reference|cuda)"),
     _c("summa_stages", "stages", "ring pipeline stages (pc = sqrt(P))"),
     _c("exchange_words_summa", "words",
        "4-byte words per device moved by the ring SUMMA ppermutes "
@@ -127,7 +127,7 @@ _SPECS: Tuple[MetricSpec, ...] = (
     _c("n_contained", "reads", "reads dropped as contained"),
     # --- TrReduction (TRStats flattened) ---
     _c("tr_iterations", "iterations", "Algorithm 2 passes to fixed point"),
-    _l("tr_backend", "TR path that actually ran (pallas|reference; "
+    _l("tr_backend", "TR path that actually ran (cuda|reference; "
        "surfaces the dense-cap silent downgrade)"),
     _c("tr_overflow", "rows", "rows overflowing the sampled-square capacity"),
     _c("nnz_S", "entries", "nonzeros of the string matrix S"),

@@ -12,6 +12,11 @@ import torch
 from repro_torch import kernels as K
 from repro_torch.assembly.pipeline import PipelineConfig, assemble
 from repro_torch.assembly.simulate import simulate_genome, simulate_reads
+from repro_torch.core.semiring import (
+    MP,
+    minplus_orient_semiring,
+    overlap_semiring,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -76,6 +81,58 @@ def test_pileup_kernel_matches_plain(card):
             assert torch.equal(g, w)
 
 
+def _stage_panels(rng, kind, stages, n, nb, ka, kb, n_out):
+    """Random stacked ring-stage panels: A ids over ``stages`` B row blocks
+    of ``nb`` rows, row-sorted with empty slots last; B ids in ``n_out``."""
+    def ell(rows, k, hi):
+        cols = rng.integers(0, hi, (stages, rows, k))
+        cols = np.sort(np.where(rng.random(cols.shape) < 0.3, 1 << 30, cols), -1)
+        return np.where(cols < (1 << 30), cols, -1).astype(np.int32)
+    a_cols, b_cols = ell(n, ka, stages * nb), ell(nb, kb, n_out)
+    if kind == "overlap":
+        def pos(cols):
+            return {"pos": np.where(cols >= 0, rng.integers(0, 900, cols.shape),
+                                    -1).astype(np.int32)}
+        a_vals, b_vals = pos(a_cols), pos(b_cols)
+    else:
+        def mp(cols):
+            v = rng.integers(1, 90, cols.shape + (4,)).astype(np.float32)
+            v[rng.random(v.shape) < 0.6] = np.inf
+            v[cols < 0] = np.inf
+            return {MP: v}
+        a_vals, b_vals = mp(a_cols), mp(b_cols)
+    offsets = (rng.permutation(stages) * nb).astype(np.int32)
+    return offsets, a_cols, a_vals, b_cols, b_vals
+
+
+@pytest.mark.parametrize("kind", ["overlap", "minplus"])
+@pytest.mark.parametrize("stages,n,nb,ka,kb,cap", [
+    (1, 300, 2000, 160, 56, 64), (3, 50, 40, 12, 9, 8), (4, 64, 64, 40, 40, 160)])
+def test_spgemm_kernel_matches_plain(card, kind, stages, n, nb, ka, kb, cap):
+    rng = np.random.default_rng(stages * 100 + ka)
+    offsets, a_cols, a_vals, b_cols, b_vals = _stage_panels(
+        rng, kind, stages, n, nb, ka, kb, n_out=4 * kb)
+    sr = overlap_semiring if kind == "overlap" else minplus_orient_semiring
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(card)
+    args = (dev(offsets), dev(a_cols), {k: dev(v) for k, v in a_vals.items()},
+            dev(b_cols), {k: dev(v) for k, v in b_vals.items()})
+    kw = dict(semiring=sr, capacity=cap, n_cols_out=4 * kb)
+    before = K.KERNELS["spgemm"].launches
+    got = K.spgemm_ring_stages(*args, **kw)
+    assert K.KERNELS["spgemm"].launches == before + 1
+    want = K.spgemm_ring_stages_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert sorted(got[1]) == sorted(want[1])
+    for key in want[1]:
+        assert torch.equal(got[1][key], want[1][key]), key
+    assert int(got[2]) == int(want[2])
+    if cap == 8:
+        assert int(want[2]) > 0  # the overflow path ran
+
+
 def test_assemble_on_card_matches_reference_backend(card):
     genome = simulate_genome(np.random.default_rng(0), 20000)
     rs = simulate_reads(genome, depth=10, mean_len=1000, std_len=150,
@@ -84,7 +141,8 @@ def test_assemble_on_card_matches_reference_backend(card):
                          band=33, xdrop=25, device="cuda")
     K.reset_launch_counts()
     res = assemble(rs.codes, rs.lengths, cfg)
-    assert all(v > 0 for v in K.launch_counts().values())
+    counts = K.launch_counts()
+    assert all(counts[k] > 0 for k in ("xdrop", "minplus", "pileup")), counts
     ref = assemble(rs.codes, rs.lengths,
                    PipelineConfig(**{**cfg.__dict__, "backend": "reference"}))
     for key in ("n_aligned", "n_passed", "nnz_R", "nnz_S", "tr_iterations",
@@ -92,3 +150,27 @@ def test_assemble_on_card_matches_reference_backend(card):
         assert res.stats[key] == ref.stats[key], key
     assert [c.reads for c in res.polished_contigs] == [
         c.reads for c in ref.polished_contigs]
+
+
+def test_assemble_shard_map_on_card_matches_gspmd(card):
+    """The shard_map path on one card (a 1×1 grid, no process group): the
+    spgemm kernel runs, and R, S and the polished contigs equal gspmd's."""
+    import dataclasses
+
+    from repro_torch.core.spmat import ell_equal
+
+    genome = simulate_genome(np.random.default_rng(0), 20000)
+    rs = simulate_reads(genome, depth=10, mean_len=1000, std_len=150,
+                        error_rate=0.03, seed=1)
+    cfg = PipelineConfig(m_capacity=1 << 17, upper=40, read_capacity=96,
+                         band=33, xdrop=25, device="cuda")
+    gs = assemble(rs.codes, rs.lengths, cfg)
+    K.reset_launch_counts()
+    sm = assemble(rs.codes, rs.lengths,
+                  dataclasses.replace(cfg, distribution="shard_map"))
+    assert all(v > 0 for v in K.launch_counts().values()), K.launch_counts()
+    assert sm.stats["summa_backend"] == "cuda"
+    assert sm.stats["distribution"] == "shard_map"
+    assert ell_equal(gs.r_graph, sm.r_graph) and ell_equal(gs.s_graph, sm.s_graph)
+    assert [c.reads for c in gs.polished_contigs] == [
+        c.reads for c in sm.polished_contigs]

@@ -83,10 +83,12 @@ def test_backend_resolution_and_registry():
     assert tb.resolve_backend("reference", "cuda") == "reference"
     with pytest.raises(ValueError):
         tb.resolve_backend("pallas")
-    with pytest.raises(NotImplementedError):
-        tb.resolve_distribution("shard_map")
+    with pytest.raises(ValueError):
+        tb.resolve_distribution("pjit")
+    assert tb.resolve_distribution("shard_map") == "shard_map"
     assert tb.resolve_distribution("gspmd") == "gspmd"
-    for op in ("xdrop_extend", "minplus_dense", "contig_gen", "consensus"):
+    for op in ("xdrop_extend", "minplus_dense", "spgemm_ring_stages",
+               "contig_gen", "consensus"):
         assert tb.available_backends(op) == ("cuda", "reference")
         assert callable(tb.dispatch(op, "cuda"))
     with pytest.raises(KeyError):
@@ -264,9 +266,10 @@ def test_convert_round_trip_and_config():
                            device="cpu")
     assert cfg.backend == "cuda" and cfg.k == 17 and cfg.device == "cpu"
     assert not hasattr(cfg, "pileup_band")
-    assert not hasattr(cfg, "summa_stages_per_call")
+    assert cfg.summa_stages_per_call == 4  # the shard_map path reads it
+    cfg8 = config_from_dict(dataclasses.asdict(JConfig(summa_stages_per_call=8)))
+    assert cfg8.summa_stages_per_call == 8
     with pytest.raises(ValueError):
         config_from_dict({"no_such_field": 1})
-    for key in ("pileup_band", "summa_stages_per_call"):
-        with pytest.raises(ValueError, match=key):
-            config_from_dict(dataclasses.asdict(JConfig(**{key: 8})))
+    with pytest.raises(ValueError, match="pileup_band"):
+        config_from_dict(dataclasses.asdict(JConfig(pileup_band=8)))

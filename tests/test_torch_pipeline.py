@@ -100,8 +100,7 @@ def test_stats_validate_and_compaction(golden):
                                     "Contigs", "Consensus"}
 
 
-@pytest.mark.parametrize("field,value", [("distribution", "shard_map"),
-                                         ("trace", True), ("mesh", object())])
+@pytest.mark.parametrize("field,value", [("trace", True), ("mesh", object())])
 def test_unported_features_raise(field, value):
     rs = _sim()
     cfg = dataclasses.replace(PipelineConfig(device="cpu"), **{field: value})
