@@ -29,6 +29,8 @@ exit, no result line) on any check that does not hold:
 4. kernels — each kernel against its plain PyTorch version on the card, at
              the main path's own inputs, exact equality; CUDA-event times of
              both and the least time the card could take (``bound_ms``).
+             xdrop is held on both paths' launches: a 4096-pair chunk of the
+             gspmd run and the shard_map run's whole bucket (a variant).
              spgemm is held on three inputs: the shard_map run's overlap
              launch, the four stage panels rank (0, 0) of a 4×4 grid holds
              (non-zero offsets) and the distributed TR's first launch;
@@ -237,6 +239,9 @@ def main() -> None:
         print(f"[shard_map] warm-up on {small.n_reads} reads: "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         captured.pop("spgemm_ring_stages", None)
+        # the gspmd run's x-drop chunk is kept; this run's launches (the
+        # whole bucket, one per direction) are captured afresh
+        cap_xdrop = captured.pop("xdrop_extend")
         K.reset_launch_counts()
         t0 = time.perf_counter()
         res_sm = assemble(reads.codes, reads.lengths, sm_cfg)
@@ -271,6 +276,10 @@ def main() -> None:
               f"{len([k for k in st if k not in skip and not k.startswith('exchange_')])}"
               f" stats keys, {len(a)} polished contigs", flush=True)
         cap_overlap = captured.pop("spgemm_ring_stages")[0]
+        cap_xdrop_sm = captured.pop("xdrop_extend")
+        check(len(cap_xdrop_sm) == sm_launches["xdrop"] == 2,
+              f"shard_map x-drop: {len(cap_xdrop_sm)} calls captured, "
+              f"{sm_launches['xdrop']} launches")
 
         # the distributed transitive reduction on phase 3's R, 1x1 grid
         grid = ProcessGrid.square()
@@ -305,7 +314,7 @@ def main() -> None:
     records = []
 
     def record(name, got, want, kernel_fn, plain_fn, bytes_, ops, ops_rate,
-               plain_note=None):
+               plain_note=None, n_launches=None):
         err = 0
         for g, w in zip(got, want):
             check(g.shape == w.shape, f"{name}: shape {g.shape} vs {w.shape}")
@@ -323,7 +332,8 @@ def main() -> None:
         rec = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": launches[name] if n_launches is None else n_launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -334,24 +344,42 @@ def main() -> None:
         records.append(rec)
         print(f"[kernels] {json.dumps(rec)}", flush=True)
 
-    # xdrop: the first 4096-pair chunk of the main run, both directions
-    calls = captured["xdrop_extend"]
-    got, want, cells, bytes_ = [], [], 0, 0
-    for a, kw in calls:
-        got += K.xdrop_extend_batch(*a, **kw)
-        out = K.xdrop_extend_batch_ref(*a, **kw, with_cells=True)
-        want += out[:3]
-        cells += int(out[3].sum(dtype=torch.int64))
-        e = a[0].shape[0]
-        bytes_ += a[0].numel() + a[4].numel() + 4 * 6 * e + 4 * 3 * e
-    print(f"[kernels] xdrop: {calls[0][0][0].shape[0]} pairs x 2 directions, "
-          f"{cells} band cells computed")
+    def xdrop_case(calls):
+        """Kernel and plain outputs of captured x-drop calls, the band
+        cells that exist and the bytes the function must move."""
+        got, want, cells, bytes_ = [], [], 0, 0
+        for a, kw in calls:
+            got += K.xdrop_extend_batch(*a, **kw)
+            out = K.xdrop_extend_batch_ref(*a, **kw, with_cells=True)
+            want += out[:3]
+            cells += int(out[3].sum(dtype=torch.int64))
+            e = a[0].shape[0]
+            bytes_ += a[0].numel() + a[4].numel() + 4 * 6 * e + 4 * 3 * e
+        print(f"[kernels] xdrop: {calls[0][0][0].shape[0]} pairs x "
+              f"{len(calls)} directions, {cells} band cells computed")
+        return got, want, cells, bytes_
+
+    # xdrop: the first 4096-pair chunk of the main run, both directions;
     # only the cells of the right parity inside both sequences exist: ~8
     # int32 operations each (two adds, a max of three, the x-drop test)
+    got, want, cells, bytes_ = xdrop_case(cap_xdrop)
     record("xdrop", got, want,
-           lambda: [K.xdrop_extend_batch(*a, **kw) for a, kw in calls],
-           lambda: [K.xdrop_extend_batch_ref(*a, **kw) for a, kw in calls],
+           lambda: [K.xdrop_extend_batch(*a, **kw) for a, kw in cap_xdrop],
+           lambda: [K.xdrop_extend_batch_ref(*a, **kw) for a, kw in cap_xdrop],
            bytes_, 8 * cells, I32_OPS_S)
+    # the shard_map run's two launches: the whole bucket, one per direction
+    got, want, cells, bytes_ = xdrop_case(cap_xdrop_sm)
+    record("xdrop", got, want,
+           lambda: [K.xdrop_extend_batch(*a, **kw) for a, kw in cap_xdrop_sm],
+           lambda: [K.xdrop_extend_batch_ref(*a, **kw) for a, kw in cap_xdrop_sm],
+           bytes_, 8 * cells, I32_OPS_S, n_launches=sm_launches["xdrop"])
+    sm_rec = records.pop()
+    records[-1]["variants"] = [{
+        "input": f"shard_map bucket, {cap_xdrop_sm[0][0][0].shape[0]} pairs "
+                 "x 2 directions",
+        **{k: sm_rec[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by")}}]
+    del cap_xdrop, cap_xdrop_sm, sm_rec
 
     # minplus: the first TR iteration's dense operand (R after BuildR)
     dense = res.r_graph.to_dense(minplus_orient_semiring)[MP].contiguous()
@@ -414,12 +442,20 @@ def main() -> None:
             t_ops = 16 * n_cand / F32_OPS_S + (cmp_ops + n_cand) / I32_OPS_S
         else:  # (+): a count add and the pair selection
             t_ops = (cmp_ops + 2 * n_cand) / I32_OPS_S
-        tensors = [offsets, a_cols, b_cols, *a_vals.values(), *b_vals.values(),
-                   got[0], *got[1].values()]
-        t_bytes = sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_S
+        # bytes: the A panels and the outputs in full, and of B only the
+        # distinct rows a live A slot selects (most B rows are never read)
+        tensors = [offsets, a_cols, *a_vals.values(), got[0], *got[1].values(),
+                   got[2]]
+        b_row = sum(t[0, 0].numel() * t.element_size()
+                    for t in (b_cols, *b_vals.values()))
+        b_rows = sum(int(torch.unique(reb[s][live_a[s]]).numel())
+                     for s in range(stages))
+        t_bytes = (sum(t.numel() * t.element_size() for t in tensors)
+                   + b_rows * b_row) / HBM_BYTES_S
         out = {
             "input": label, "stages": stages, "rows": n_a, "k_a": ka,
             "k_b": b_cols.shape[2], "candidates": int(n_cand),
+            "b_rows_read": b_rows,
             "max_abs_err": 0,  # exact: any difference failed above
             "ms": time_ms(lambda: K.spgemm_ring_stages(*args, **kw), 5),
             "plain_ms": time_ms(lambda: K.spgemm_ring_stages_ref(*args, **kw), 1),
@@ -464,7 +500,7 @@ def main() -> None:
         "bound_ms": sp_main["bound_ms"], "bound_by": sp_main["bound_by"],
         "library_ms": None, "variants": [sp_s4, sp_tr],
     })
-    del captured, got, want, cap_overlap, cap_tr, args4
+    del captured, cap_overlap, cap_tr, args4
 
     # --- 5. parity ---
     t0 = time.perf_counter()

@@ -101,7 +101,6 @@ class PipelineConfig:
     # torch.distributed process grid)
     distribution: str = "gspmd"
     mesh: Any = None
-    summa_stages_per_call: int = 4  # ring stages per spgemm kernel launch
     trace: bool = False
     # where the pipeline runs; a CUDA device that is absent raises
     device: str = "cuda"
@@ -273,7 +272,7 @@ def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
                 a, at, semiring=overlap_semiring,
                 operand_semiring=first_semiring,
                 capacity=cfg.overlap_capacity, mesh=cfg.mesh,
-                backend=backend, stages_per_call=cfg.summa_stages_per_call)
+                backend=backend)
         else:
             c_mat, ovf_c = spgemm(a, at, semiring=overlap_semiring,
                                   capacity=cfg.overlap_capacity)

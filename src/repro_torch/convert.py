@@ -37,8 +37,9 @@ def ell_to_numpy(mat: EllMatrix) -> Tuple[np.ndarray, Dict[str, np.ndarray], int
 
 
 # JAX config fields the port has no counterpart for, with their JAX
-# defaults: the TPU pileup kernel's column band
-JAX_ONLY_DEFAULTS = {"pileup_band": 512}
+# defaults: the TPU pileup kernel's column band and the shard_map SUMMA's
+# stages per launch (the port's is the constant core.summa.STAGES_PER_CALL)
+JAX_ONLY_DEFAULTS = {"pileup_band": 512, "summa_stages_per_call": 4}
 
 
 def config_from_dict(d: Mapping[str, Any], **overrides) -> PipelineConfig:

@@ -49,6 +49,9 @@ from .spmat import EllMatrix, NO_COL, from_coo, merge_sorted_rows, prune
 from ..obs import schema, validated
 
 _I32 = torch.int32
+#: ring stages per ``spgemm_ring_stages`` launch (JAX's
+#: ``PipelineConfig.summa_stages_per_call`` default)
+STAGES_PER_CALL = 4
 
 
 @dataclasses.dataclass
@@ -274,7 +277,7 @@ def summa_allgather(a: DistEll, b: DistEll, *, semiring: Semiring,
 
 def summa_ring(a: DistEll, b: DistEll, *, semiring: Semiring,
                out_block_capacity: int, backend: str = "auto",
-               stages_per_call: int = 4):
+               stages_per_call: int = STAGES_PER_CALL):
     """Explicit-exchange Cannon ring SUMMA.  Returns ``(DistEll C,
     overflow, stats)``.
 
@@ -291,8 +294,10 @@ def summa_ring(a: DistEll, b: DistEll, *, semiring: Semiring,
     rotation as it is issued (words per rank, JAX's trace-time accounting;
     the one-time skew is not counted, as in JAX, where it is a reshard of
     the global array).  ``summa_backend`` and ``spgemm_hbm_round_trips``
-    name what ran: ``"cuda"`` launches the kernel once per batch,
-    ``ceil(pc / stages_per_call)``; the plain version pays one per stage.
+    name what ran: ``"cuda"`` on CUDA tensors launches the kernel once per
+    batch, ``ceil(pc / stages_per_call)``; the plain version (the
+    ``reference`` backend, or any backend on CPU tensors) pays one per
+    stage.
 
     Non-square grids cannot form the ring: they run
     :func:`summa_allgather`, recording ``summa_algorithm=
@@ -370,16 +375,14 @@ def summa_ring(a: DistEll, b: DistEll, *, semiring: Semiring,
                                    capacity=out_block_capacity,
                                    semiring=semiring)
     ovf = grid.psum((ovf + mo).reshape(1), ("data", "model"))[0]
-    fused = resolved == "cuda"
-    from ..kernels.spgemm.ops import hbm_round_trips
-
+    fused = resolved == "cuda" and dev.type == "cuda"  # the kernel ran
     stats = validated({
         "summa_algorithm": "ring",
         "summa_stages": pc,
-        "summa_backend": resolved,
+        "summa_backend": "cuda" if fused else "reference",
         "exchange_words_summa": acct["words"],
         "exchange_rounds_summa": acct["rounds"],
-        "spgemm_hbm_round_trips": hbm_round_trips(pc, g) if fused else pc,
+        "spgemm_hbm_round_trips": -(-pc // g) if fused else pc,
         "spgemm_hbm_round_trips_reference": pc,
     }, context="summa_ring", require_groups=("summa_exchange",))
     c = EllMatrix(cols=mc, vals=mv, n_cols=n_cols_out)
@@ -405,7 +408,8 @@ def overlap_spgemm_shard_map(a: EllMatrix, b: EllMatrix, *,
                              semiring: Semiring, operand_semiring: Semiring,
                              capacity: int,
                              mesh: Optional[ProcessGrid] = None,
-                             backend: str = "auto", stages_per_call: int = 4):
+                             backend: str = "auto",
+                             stages_per_call: int = STAGES_PER_CALL):
     """Distributed C = A ⊗ B for operands every rank holds — the overlap
     stage's ``distribution="shard_map"`` path.
 
@@ -467,8 +471,7 @@ def _prune_step(grid: ProcessGrid, r: EllMatrix, got: torch.Tensor,
 def dist_transitive_reduction_ring(r: DistEll, fuzz: float = 200.0, *,
                                    n_block_capacity: Optional[int] = None,
                                    max_iters: int = 10,
-                                   backend: str = "auto",
-                                   stages_per_call: int = 4):
+                                   backend: str = "auto"):
     """Distributed Algorithm 2 with the N = R² square on the explicit
     exchange ring.  Returns ``(DistEll, iters, nnz, stats)``.
 
@@ -490,8 +493,7 @@ def dist_transitive_reduction_ring(r: DistEll, fuzz: float = 200.0, *,
     while nnz_cur != prev and it < max_iters:
         n_sq, _, st = summa_ring(cur, cur, semiring=MPSR,
                                  out_block_capacity=n_block_capacity,
-                                 backend=backend,
-                                 stages_per_call=stages_per_call)
+                                 backend=backend)
         got, found = n_sq.mat.lookup(MPSR, cur.mat.cols)
         pruned = _prune_step(grid, cur.mat, got[MP], found, fuzz_t)
         cur = DistEll(mat=pruned, grid=grid)

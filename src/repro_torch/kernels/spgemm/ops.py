@@ -43,13 +43,6 @@ def shared_bytes(ka: int, kb: int) -> int:
     return 8 * sort_keys(ka, kb) + 4 * 40
 
 
-def hbm_round_trips(stages: int, stages_per_call: int = 4) -> int:
-    """Launches (device-memory round trips of the stage buffers) the kernel
-    needs for ``stages`` ring stages in batches of ``stages_per_call``; the
-    plain version pays one per stage."""
-    return -(-int(stages) // max(1, stages_per_call))
-
-
 def _check_vals(sr_id, a_vals, b_vals, semiring):
     want = {"pos"} if sr_id == 0 else {MP}
     for key, vals in (("a_vals", a_vals), ("b_vals", b_vals)):

@@ -99,8 +99,8 @@ _SPECS: Tuple[MetricSpec, ...] = (
     _c("exchange_rounds_summa", "rounds",
        "ppermute rotations issued by the ring SUMMA", "summa_exchange"),
     _c("spgemm_hbm_round_trips", "trips",
-       "HBM round trips the resolved SpGEMM backend pays "
-       "(fused: ceil(pc/stages_per_call))"),
+       "device-memory round trips of what ran "
+       "(the cuda kernel: ceil(pc/stages_per_call))"),
     _c("spgemm_hbm_round_trips_reference", "trips",
        "HBM round trips of the per-stage reference path (= pc)"),
     _c("overflow_C", "entries", "candidate entries dropped by K_C capacity"),

@@ -170,6 +170,7 @@ def test_assemble_shard_map_on_card_matches_gspmd(card):
                   dataclasses.replace(cfg, distribution="shard_map"))
     assert all(v > 0 for v in K.launch_counts().values()), K.launch_counts()
     assert sm.stats["summa_backend"] == "cuda"
+    assert sm.stats["spgemm_hbm_round_trips"] == 1  # one launch on a 1x1 grid
     assert sm.stats["distribution"] == "shard_map"
     assert ell_equal(gs.r_graph, sm.r_graph) and ell_equal(gs.s_graph, sm.s_graph)
     assert [c.reads for c in gs.polished_contigs] == [
