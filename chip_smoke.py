@@ -17,6 +17,16 @@ exit, no result line) on any check that does not hold:
              The launch counts are set to 0 just before and read just
              after: every kernel of the path (xdrop, minplus, pileup) must
              have run;
+3a. traced — the same reads through ``assemble(trace=True)``: R, S, the
+             stats and the polished contigs must equal phase 3's; the span
+             roots must be the eight stages in order, each with the
+             allocator's peak (``hbm_source == "device_stats"``), and the
+             kernel-launch spans must name every kernel phase 3 launched.
+             The Chrome trace goes to ``build/chip_smoke/trace.json``.  The
+             report path follows: ``read_components`` →
+             ``contig_components`` → ``write_contig_fasta`` →
+             ``read_fasta_sharded`` on the polished contigs (a round trip),
+             and ``assembly_identity`` of the draft and polished contigs;
 3b. shard_map — a 1-rank NCCL process group (in-process store), then,
              after a 20 kb warm-up of its own, ``assemble(distribution=
              "shard_map")`` on the same reads: the ring SUMMA, the
@@ -34,6 +44,13 @@ exit, no result line) on any check that does not hold:
              spgemm is held on three inputs: the shard_map run's overlap
              launch, the four stage panels rank (0, 0) of a 4×4 grid holds
              (non-zero offsets) and the distributed TR's first launch;
+4b. cc     — ``connected_components(backend="cuda")`` on three inputs: the
+             state graphs ``expand_states`` of phase 3's S (its launch
+             counts, set to 0 just before, are the cc record's) and R, and
+             a permuted chain of 2^17 vertices capped at ``max_iters=1003``
+             (125 chunks and a 3-round tail, unconverged).  Labels and
+             rounds must equal the chunk driver over the plain rounds on
+             the same tensors, and labels the ``reference`` backend's;
 5. parity  — ``assemble(backend="reference")`` (plain torch ops and the host
              contig walk) on the card: R, S, every stats key but the timing,
              memory and path labels, and the polished contigs must be equal.
@@ -54,15 +71,25 @@ import subprocess
 import sys
 import time
 
-KERNEL_NAMES = ("xdrop", "minplus", "pileup", "spgemm")
-# the kernels of each path: the single-device path does not run spgemm
+KERNEL_NAMES = ("xdrop", "minplus", "pileup", "spgemm", "cc")
+# the kernels of each path: the single-device path does not run spgemm,
+# and only connected_components runs cc
 GSPMD_KERNELS = ("xdrop", "minplus", "pileup")
+SHARD_MAP_KERNELS = ("xdrop", "minplus", "pileup", "spgemm")
 REPLACES = {
     "xdrop": "src/repro/kernels/xdrop/xdrop.py:105",
     "minplus": "src/repro/kernels/minplus/minplus.py:54",
     "pileup": "src/repro/kernels/pileup/pileup.py:106",
     "spgemm": "src/repro/kernels/spgemm/spgemm.py:133",
+    "cc": "src/repro/kernels/cc/cc.py:66",
 }
+# the ``kernel`` attribute of each kernel's ``kernel_launch`` span: the
+# name the JAX package's spans give the same kernel
+SPAN_KERNEL = {"xdrop": "xdrop_extend", "minplus": "minplus_dense",
+               "pileup": "pileup_vote", "spgemm": "spgemm_ring_stages",
+               "cc": "cc_labels"}
+STAGES = ["CountKmer", "CreateSpMat", "SpGEMM", "Alignment", "BuildR",
+          "TrReduction", "Contigs", "Consensus"]
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; f32 add/min
 # instructions/s (67 TFLOP/s counts an FMA as two); int32 operations/s
 # (64 INT32 lanes per SM per clock, half the f32 lanes)
@@ -135,15 +162,30 @@ def main() -> None:
     try:
         from repro_torch import kernels as K
         from repro_torch.assembly import simulate as sim
+        from repro_torch.assembly.contigs import (
+            contig_components,
+            read_components,
+        )
         from repro_torch.assembly.counter import first_semiring
+        from repro_torch.assembly.io_fasta import (
+            read_fasta_sharded,
+            write_contig_fasta,
+        )
+        from repro_torch.assembly.metrics import assembly_identity
         from repro_torch.assembly.pipeline import PipelineConfig, assemble
         from repro_torch.core import backend as B
         from repro_torch.core import summa as SU
+        from repro_torch.core.components import (
+            connected_components,
+            expand_states,
+        )
         from repro_torch.core.grid import ProcessGrid
         from repro_torch.core.semiring import MP, minplus_orient_semiring
-        from repro_torch.core.spmat import ell_equal
+        from repro_torch.core.spmat import EllMatrix, ell_equal
         from repro_torch.core.transitive_reduction import transitive_reduction
         from repro_torch.kernels.build import BUILD_LOG, build_all
+        from repro_torch.kernels.cc import ops as cc_ops
+        from repro_torch.obs import write_chrome_trace
     except ImportError as e:
         fail(f"the repository's src/repro_torch is not beside this script: {e}")
 
@@ -187,9 +229,13 @@ def main() -> None:
             return fn(*a, **kw)
         return wrapped
 
+    # the registered cuda implementations of the ops captured below
+    originals = {"xdrop_extend": K.xdrop_extend_batch,
+                 "consensus": K.pileup_vote,
+                 "spgemm_ring_stages": K.spgemm_ring_stages}
     for op, keep in (("xdrop_extend", 2), ("consensus", 1),
                      ("spgemm_ring_stages", 1)):
-        B.register_op(op, "cuda", capture(op, B.dispatch(op, "cuda"), keep))
+        B.register_op(op, "cuda", capture(op, originals[op], keep))
 
     # cold start (CUDA context, lazily loaded library kernels, allocator
     # growth) is paid on a small input first, so the stage times below are
@@ -226,6 +272,107 @@ def main() -> None:
                                             "consensus_depth_mean")),
           "non-finite quality estimate")
 
+    # --- 3a. traced ---
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    tres = assemble(reads.codes, reads.lengths,
+                    dataclasses.replace(cfg, trace=True))
+    torch.cuda.synchronize()
+    wall_tr = time.perf_counter() - t0
+    traced_launches = K.launch_counts()
+    tracer = tres.trace
+    print(f"[traced] assemble {wall_tr:.3f} s traced after {wall:.3f} s "
+          f"untraced ({len(list(tracer.spans()))} spans); stages (s) traced / "
+          "untraced: " + json.dumps({k: [round(tres.timings[k], 4),
+                                         round(res.timings[k], 4)]
+                                     for k in res.timings}), flush=True)
+    check(ell_equal(res.r_graph, tres.r_graph), "R differs: traced vs untraced")
+    check(ell_equal(res.s_graph, tres.s_graph), "S differs: traced vs untraced")
+    check(list(tres.stats) == list(st), "stats keys differ: traced vs untraced")
+    diff = [k for k in st if k not in ("peak_hbm_bytes", "hbm_bytes_in_use")
+            and st[k] != tres.stats[k]]
+    check(not diff, f"stats differ between traced and untraced: {diff}")
+    a, b = res.polished_contigs, tres.polished_contigs
+    check(len(a) == len(b) and all(
+        x.reads == y.reads and np.array_equal(x.codes, y.codes)
+        for x, y in zip(a, b)), "polished contigs differ: traced vs untraced")
+    roots = [sp.name for sp in tracer.roots]
+    check(roots == STAGES, f"trace roots {roots}")
+    for sp in tracer.roots:
+        check(sp.attrs.get("hbm_source") == "device_stats"
+              and sp.attrs.get("peak_hbm_bytes", 0) > 0,
+              f"stage span {sp.name} lacks the allocator's peak: {sp.attrs}")
+        check(tres.timings[sp.name] == sp.duration_s,
+              f"timing of {sp.name} is not its span's")
+    # a kernel_launch span opens around each launch and nowhere else, so
+    # its count per kernel is the traced run's launch count
+    span_counts = {k: 0 for k in SPAN_KERNEL.values()}
+    for sp in tracer.find("kernel_launch"):
+        span_counts[sp.attrs["kernel"]] += 1
+    traced_kernels = sorted(k for k, v in span_counts.items() if v)
+    check(traced_launches == launches
+          and all(span_counts[SPAN_KERNEL[k]] == v for k, v in launches.items()),
+          f"kernel_launch spans {span_counts} / launches {traced_launches} vs "
+          f"the untraced run's {launches}")
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "chip_smoke")
+    os.makedirs(trace_dir, exist_ok=True)
+    trace_path = write_chrome_trace(tracer, os.path.join(trace_dir,
+                                                         "trace.json"))
+    with open(trace_path) as f:
+        doc = json.load(f)
+    check([n["name"] for n in doc["spanTree"]] == STAGES,
+          "the Chrome trace's span tree")
+    # the overhead of tracing: untraced and traced runs in turns, all four
+    # after the first run at this size (which pays the allocator's growth)
+    walls = {"untraced": [], "traced": []}
+    for trace in (False, True, False, True):
+        t0 = time.perf_counter()
+        assemble(reads.codes, reads.lengths,
+                 dataclasses.replace(cfg, trace=trace))
+        torch.cuda.synchronize()
+        walls["traced" if trace else "untraced"].append(
+            time.perf_counter() - t0)
+    print(f"[traced] wall (s), in turns untraced, traced, untraced, traced: "
+          f"untraced {walls['untraced']}, traced {walls['traced']}; the "
+          f"traced run's peak {tres.stats['peak_hbm_bytes']} bytes (phase "
+          f"3's results still live)", flush=True)
+    print(f"[traced] == untraced: R, S, {len(st)} stats keys, {len(b)} "
+          f"polished contigs; roots = the 8 stages, each with peak_hbm_bytes "
+          f"(device_stats); kernel_launch spans {traced_kernels}; "
+          f"Chrome trace {os.path.relpath(trace_path)} "
+          f"({len(doc['traceEvents'])} events); stage peaks (bytes): "
+          + json.dumps({sp.name: sp.attrs["peak_hbm_bytes"]
+                        for sp in tracer.roots}), flush=True)
+
+    # the report path: components, grouped FASTA, round trip, identity
+    t0 = time.perf_counter()
+    polished = tres.polished_contigs
+    comps = contig_components(polished, read_components(tres.s_graph))
+    nc = tres.consensus.n_contigs
+    fasta = os.path.join(trace_dir, "contigs.fasta")
+    n_rec = write_contig_fasta(
+        fasta, polished, comps,
+        identity=tres.consensus.identity[:nc].cpu().numpy(),
+        depth=tres.consensus.depth_mean[:nc].cpu().numpy())
+    names, fcodes, flens = read_fasta_sharded(fasta)
+    order = [i for c in sorted(set(comps)) for i, x in enumerate(comps)
+             if x == c]
+    check(n_rec == len(polished) == len(names) and all(
+        np.array_equal(fcodes[r][:flens[r]], polished[i].codes)
+        for r, i in enumerate(order)), "FASTA round trip of the contigs")
+    band = max(64, int(8 * 0.05 * 1400))
+    draft_id, nb = assembly_identity(tres.contigs, reads, min_reads=2,
+                                     band=band)
+    pol_id, _ = assembly_identity(polished, reads, min_reads=2, band=band)
+    check(0.5 < draft_id <= 1.0 and 0.5 < pol_id <= 1.0,
+          f"identity vs truth: draft {draft_id}, polished {pol_id}")
+    print(f"[report] {n_rec} FASTA records in {len(set(comps))} component "
+          f"group(s), round trip exact; identity vs truth ({nb} bases): "
+          f"draft {draft_id:.6f} -> polished {pol_id:.6f}; "
+          f"{time.perf_counter() - t0:.1f} s on the host", flush=True)
+    del tres, tracer, doc
+
     # --- 3b. shard_map ---
     import torch.distributed as dist
 
@@ -256,7 +403,7 @@ def main() -> None:
         print("[shard_map] stats: " + json.dumps(ss))
         print(f"[shard_map] peak device memory {ss['peak_hbm_bytes']} bytes; "
               f"launches {json.dumps(sm_launches)}", flush=True)
-        for name in KERNEL_NAMES:
+        for name in SHARD_MAP_KERNELS:
             check(sm_launches[name] > 0,
                   f"kernel {name} was not launched on the shard_map path")
         check(ss["summa_backend"] == "cuda", f"summa_backend {ss['summa_backend']!r}")
@@ -501,6 +648,93 @@ def main() -> None:
         "library_ms": None, "variants": [sp_s4, sp_tr],
     })
     del captured, cap_overlap, cap_tr, args4
+    for op, fn in originals.items():
+        B.register_op(op, "cuda", fn)
+
+    # --- 4b. cc ---
+    def cc_case(label, cols, max_iters=None):
+        """connected_components on the card against the chunk driver over
+        the plain rounds (labels, rounds) and the reference backend
+        (labels)."""
+        n = cols.shape[0]
+        adj = EllMatrix(cols=cols, vals={}, n_cols=n)
+        before = K.launch_counts()["cc"]
+        t0 = time.perf_counter()
+        lab, it = connected_components(adj, max_iters=max_iters, backend="cuda")
+        torch.cuda.synchronize()
+        wall_cc = time.perf_counter() - t0
+        n_launch = K.launch_counts()["cc"] - before
+        cap = n if max_iters is None else max_iters
+        rounds = min(cc_ops.ROUNDS_PER_CALL, cap)
+        ic = cc_ops.transpose_ell(cols)
+        p_lab, p_it, p_calls = cc_ops._drive_chunks(
+            cols, ic, torch.arange(n, dtype=torch.int32, device=cols.device),
+            rounds=rounds, n_chunks=cap // rounds, rem=cap % rounds,
+            rounds_fn=K.cc_rounds_ref)
+        r_lab, r_it = connected_components(adj, max_iters=max_iters,
+                                           backend="reference")
+        check(torch.equal(lab, p_lab) and it == p_it and n_launch == p_calls,
+              f"cc ({label}): kernel driver differs from the plain driver "
+              f"(rounds {it} vs {p_it}, launches {n_launch} vs {p_calls})")
+        check(torch.equal(lab, r_lab),
+              f"cc ({label}): labels differ from the reference backend")
+        out = {"input": label, "n": n, "k_out": cols.shape[1],
+               "k_in": ic.shape[1], "max_iters": cap, "rounds": it,
+               "reference_rounds": r_it, "launches": n_launch,
+               "components": int(torch.unique(lab).numel()),
+               "wall_s": wall_cc}
+        print(f"[cc] {json.dumps(out)}", flush=True)
+        return out, ic
+
+    s_states = expand_states(res.s_graph).cols.contiguous()
+    K.reset_launch_counts()
+    cc_s, ic_s = cc_case("expand_states(S)", s_states)
+    cc_launches = K.launch_counts()
+    check(cc_launches["cc"] > 0, "kernel cc was not launched on its path")
+    cc_r, _ = cc_case("expand_states(R)",
+                      expand_states(res.r_graph).cols.contiguous())
+    perm = np.random.default_rng(args.seed).permutation(1 << 17)
+    chain = np.full((1 << 17, 1), -1, np.int32)
+    chain[perm[:-1], 0] = perm[1:]
+    cc_chain, _ = cc_case("permuted chain of 2^17 vertices",
+                          torch.from_numpy(chain).cuda(), max_iters=1003)
+    check(cc_chain["rounds"] == 1003 and cc_chain["launches"] == 126
+          and cc_chain["components"] > 1,
+          f"capped chain: {cc_chain}")
+    # the record: one launch of 8 rounds on S's state graph from the
+    # identity labels, the driver's first call
+    n_s = s_states.shape[0]
+    lab0 = torch.arange(n_s, dtype=torch.int32, device=s_states.device)
+    rounds = cc_ops.ROUNDS_PER_CALL
+    got = K.cc_rounds(s_states, ic_s, lab0, rounds)
+    want = K.cc_rounds_ref(s_states, ic_s, lab0, rounds)
+    check(torch.equal(got[0], want[0]) and int(got[1]) == int(want[1]),
+          "cc: kernel differs from its plain version")
+    live = int((s_states >= 0).sum()) + int((ic_s >= 0).sum())
+    # bytes: oc, ic and the labels read once, the labels and the flag
+    # written once; operations: a min per live slot, and per vertex a min
+    # with its own label in each hook, the jump and the compare, per round
+    cc_bytes = 4 * (s_states.numel() + ic_s.numel() + 2 * n_s + 1)
+    cc_ops_n = rounds * (live + 4 * n_s)
+    t_bytes = cc_bytes / HBM_BYTES_S * 1e3
+    t_ops = cc_ops_n / I32_OPS_S * 1e3
+    records.append({
+        "name": "cc", "route": "cuda", "source": "src/repro_torch/csrc/cc.cu",
+        "replaces": REPLACES["cc"], "launches": cc_launches["cc"],
+        "max_abs_err": 0,  # exact: any difference failed above
+        "ms": time_ms(lambda: K.cc_rounds(s_states, ic_s, lab0, rounds), 20),
+        "plain_ms": time_ms(lambda: K.cc_rounds_ref(s_states, ic_s, lab0,
+                                                    rounds), 3),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "shapes": {"n": n_s, "k_out": s_states.shape[1],
+                   "k_in": ic_s.shape[1], "rounds": rounds,
+                   "live_slots": live},
+        "variants": [cc_s, cc_r, cc_chain],
+    })
+    print(f"[kernels] {json.dumps(records[-1])}", flush=True)
+    del s_states, ic_s, chain
 
     # --- 5. parity ---
     t0 = time.perf_counter()

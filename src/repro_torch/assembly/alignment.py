@@ -5,7 +5,8 @@ pair is extended forward from the end of its shared k-mer seed and backward
 from its start by the banded x-drop wavefront (see
 ``kernels/xdrop/ref.py``); ``batch_extend`` runs each direction as one
 batched ``xdrop_extend`` op on the selected backend and combines them into
-the alignment coordinates the overlap classifier consumes.
+the alignment coordinates the overlap classifier consumes;
+``extend_pair`` is the single-pair form.
 """
 
 from __future__ import annotations
@@ -53,6 +54,26 @@ class PairAlignment(NamedTuple):
     ei: torch.Tensor
     bj: torch.Tensor
     ej: torch.Tensor
+
+
+def extend_pair(a, la, b_oriented, lb, pa, pb, *, k: int, xdrop: int = 15,
+                match: int = 1, mismatch: int = -1, gap: int = -1,
+                band: int = 33, max_steps: int = 512) -> PairAlignment:
+    """Seed-and-extend of one pair around an exact k-mer seed at ``pa`` on
+    ``a`` and ``pb`` on the oriented ``b``: forward from the seed's end,
+    backward from its start."""
+    kw = dict(xdrop=xdrop, match=match, mismatch=mismatch, gap=gap,
+              band=band, max_steps=max_steps)
+    fwd = xdrop_extend(a, pa + k, 1, la - pa - k, b_oriented, pb + k, 1,
+                       lb - pb - k, **kw)
+    bwd = xdrop_extend(a, pa - 1, -1, pa, b_oriented, pb - 1, -1, pb, **kw)
+    return PairAlignment(
+        score=k * match + fwd.score + bwd.score,
+        bi=pa - bwd.ai,
+        ei=pa + k + fwd.ai,
+        bj=pb - bwd.bj,
+        ej=pb + k + fwd.bj,
+    )
 
 
 def batch_extend(a_codes, a_len, b_codes_oriented, b_len, pa, pb, *, k,

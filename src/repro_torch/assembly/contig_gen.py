@@ -16,7 +16,8 @@ The only host reads are four scalars (#chains, max chain length, #contigs,
 max contig length) that size the power-of-two padded tensors between the
 steps.  The op ``contig_gen`` is registered with ``"reference"`` = the host
 walk of ``contigs.py`` and ``"cuda"`` = this device path; both give
-identical contigs.
+identical contigs.  ``string_matrix_from_edges`` and
+``consistent_chain_graph`` build string matrices for tests and benchmarks.
 """
 
 from __future__ import annotations
@@ -35,8 +36,8 @@ from ..core.components import (
     expand_states,
     path_components,
 )
-from ..core.semiring import MP
-from ..core.spmat import EllMatrix, next_pow2
+from ..core.semiring import MP, minplus_orient_semiring
+from ..core.spmat import EllMatrix, from_coo, next_pow2
 from ..obs import schema, validated
 from .contigs import (
     Contig,
@@ -73,6 +74,62 @@ class ContigSet:
 
 
 ZERO_EXCHANGE_STATS = schema.zero_defaults("contig_exchange")
+
+
+def string_matrix_from_edges(n_reads, edges, *, capacity=8) -> EllMatrix:
+    """A min-plus string matrix (CPU tensors) from an explicit edge list —
+    test and benchmark scaffolding.  ``edges``: iterable of ``(i, j, strand_i,
+    strand_j, suffix)`` directed state-graph edges."""
+    edges = list(edges)
+    ok = torch.ones(len(edges), dtype=torch.bool)
+    if not edges:
+        edges = [(0, 0, 0, 0, 0)]
+        ok = torch.zeros(1, dtype=torch.bool)
+    arr = np.asarray(edges, np.int64)
+    e = arr.shape[0]
+    combo = 2 * arr[:, 2] + arr[:, 3]
+    vals = np.full((e, 4), np.inf, np.float32)
+    vals[np.arange(e), combo] = arr[:, 4]
+    mat, _ = from_coo(
+        torch.from_numpy(arr[:, 0].astype(np.int32)),
+        torch.from_numpy(arr[:, 1].astype(np.int32)),
+        {MP: torch.from_numpy(vals)}, ok,
+        n_rows=n_reads, n_cols=n_reads, capacity=capacity,
+        semiring=minplus_orient_semiring,
+    )
+    return mat
+
+
+def consistent_chain_graph(n, seed, *, err=0.0, break_every=None):
+    """Dovetail-chain string matrix whose reads are slices of one synthetic
+    genome (optionally ``err`` substitutions, optionally broken into
+    separate chains every ``break_every`` reads) — test and benchmark
+    scaffolding for the consensus stage.  The same seed gives the same
+    graph and reads as the JAX package's.  Returns ``(s_mat, codes,
+    lengths, genome)`` with numpy reads."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(180, 250, n).astype(np.int32)
+    pos = np.zeros(n, np.int64)
+    edges = []
+    for i in range(n - 1):
+        ov = int(min(rng.integers(80, 140), lengths[i] - 1,
+                     lengths[i + 1] - 1))
+        pos[i + 1] = pos[i] + lengths[i] - ov
+        if break_every is None or i % break_every != break_every - 1:
+            edges.append((i, i + 1, 0, 0, int(lengths[i + 1]) - ov))
+            edges.append((i + 1, i, 1, 1, int(lengths[i]) - ov))
+    genome = rng.integers(0, 4, int(pos[-1] + lengths[-1]), dtype=np.uint8)
+    lmax = int(lengths.max())
+    codes = np.zeros((n, lmax), np.uint8)
+    for i in range(n):
+        codes[i, : lengths[i]] = genome[pos[i]: pos[i] + lengths[i]]
+    if err > 0:
+        flip = rng.random((n, lmax)) < err
+        codes = np.where(
+            flip, (codes + rng.integers(1, 4, (n, lmax))) % 4, codes
+        ).astype(np.uint8)
+    s = string_matrix_from_edges(n, edges, capacity=8)
+    return s, codes, lengths, genome
 
 
 def _cumsum32(x: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,11 @@ disjoint paths and cycles; cycles are cut at their minimum state, which
 becomes the head; one contig is emitted per chain whose head has an
 outgoing edge in the original graph.  A chain is dropped iff its reverse-
 complement twin is also emitted and is lexicographically smaller.
+
+Besides the walk: :func:`extract_contigs` (walk + materialisation in one
+call), :func:`pileup_polish_host` (the dict-and-loop cross-check of the
+``consensus`` op), :func:`read_components` / :func:`contig_components`
+(the component grouping of the FASTA output) and :func:`contig_str`.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core.semiring import MP
+from .kmers import BASES
 
 
 def _np(x) -> np.ndarray:
@@ -164,6 +170,14 @@ def extract_contig_chains(s_mat, _edges=None):
     return kept, n_branch_cut
 
 
+def extract_contigs(s_mat, codes, lengths, contained=None) -> List[Contig]:
+    """The host walk's contigs of string matrix ``s_mat`` (min-plus
+    values); reads marked ``contained`` are not emitted as singletons."""
+    edges = state_edges(s_mat)
+    chains, _ = extract_contig_chains(s_mat, _edges=edges)
+    return materialize_contigs(chains, edges[2], codes, lengths, contained)
+
+
 def materialize_contigs(chains, has_edge, codes, lengths, contained=None
                         ) -> List[Contig]:
     """Chains of ``(state, in_suffix)`` as sequence-bearing contigs, then
@@ -210,3 +224,103 @@ def contig_stats(contigs: List[Contig]) -> ContigStats:
             n50, l50 = x, rank + 1
             break
     return ContigStats(len(ls), total, n50, ls[0], l50, total / len(ls))
+
+
+def pileup_polish_host(draft_codes, draft_lengths, states, offsets, widths,
+                       read_codes, read_lengths, *, min_depth: int = 2):
+    """Host dict-and-loop walk of the consensus pileup — the slow,
+    obviously-correct cross-check of the ``consensus`` op's two backends.
+    Votes pass the coherence gate (read-vs-draft agreement on the
+    ±``COH_WIN`` window) before counting; a column is re-called to the
+    smallest-code argmax of its votes iff ``depth ≥ min_depth`` and the
+    winner holds a strict majority, else the draft base stays.  Returns
+    ``(polished, depth, agree)`` numpy arrays."""
+    from ..kernels.pileup.ref import COH_DEN, COH_MIN_VALID, COH_NUM, COH_WIN
+
+    draft = _np(draft_codes)
+    dlens = _np(draft_lengths)
+    states = _np(states)
+    offsets = _np(offsets)
+    widths = _np(widths)
+    rcodes = _np(read_codes)
+    rlens = _np(read_lengths)
+    c = draft.shape[0]
+    # the max contig length, not the input's padding (as polish_contig_set)
+    l = max(int(dlens.max(initial=0)), 1)
+    draft = draft[:, :l] if draft.shape[1] >= l else np.pad(
+        draft, ((0, 0), (0, l - draft.shape[1])))
+    counts = np.zeros((c, l, 4), np.int64)
+    for i in range(c):
+        for t in range(states.shape[1]):
+            s = int(states[i, t])
+            if s < 0:
+                continue
+            r, flip = s >> 1, s & 1
+            ln = int(rlens[r])
+            oriented = _oriented(rcodes[r], ln, flip)
+            start = int(offsets[i, t]) + int(widths[i, t]) - ln
+            for b in range(ln):
+                col = start + b
+                if not 0 <= col < l:
+                    continue
+                match = valid = 0
+                for w in range(-COH_WIN, COH_WIN + 1):
+                    if w == 0 or not 0 <= b + w < ln:
+                        continue
+                    if not 0 <= col + w < l:
+                        continue
+                    valid += 1
+                    match += int(oriented[b + w]) == int(draft[i, col + w])
+                if COH_DEN * match >= COH_NUM * valid and valid >= COH_MIN_VALID:
+                    counts[i, col, int(oriented[b])] += 1
+    depth = counts.sum(axis=2)
+    win = counts.max(axis=2)
+    winner = counts.argmax(axis=2)
+    change = (depth >= min_depth) & (2 * win > depth)
+    polished = np.where(change, winner, draft).astype(np.uint8)
+    agree = np.take_along_axis(
+        counts, polished[:, :, None].astype(np.int64), axis=2)[:, :, 0]
+    # columns past each contig's length are padding in every backend
+    colmask = np.arange(l)[None, :] < dlens[:, None]
+    polished = np.where(colmask, polished, 0).astype(np.uint8)
+    return polished, depth.astype(np.int32), agree.astype(np.int32)
+
+
+def read_components(s_mat) -> np.ndarray:
+    """Connected components of the string graph at read granularity (both
+    strands of a read are one vertex): ``(n,)`` labels, each the minimum
+    read id of its component — the grouping key of
+    ``io_fasta.write_contig_fasta``."""
+    cols = _np(s_mat.cols)
+    vals = _np(s_mat.vals[MP])
+    n = cols.shape[0]
+    parent = np.arange(n)
+
+    def find(x):
+        root = x
+        while parent[root] != root:
+            root = parent[root]
+        while parent[x] != root:
+            parent[x], x = root, parent[x]
+        return root
+
+    for i in range(n):
+        for q in range(cols.shape[1]):
+            j = int(cols[i, q])
+            if j < 0 or not np.isfinite(vals[i, q]).any():
+                continue
+            ri, rj = find(i), find(j)
+            if ri != rj:
+                parent[max(ri, rj)] = min(ri, rj)
+    return np.asarray([find(i) for i in range(n)])
+
+
+def contig_components(contigs: List[Contig], components: np.ndarray):
+    """Component label per contig: that of its reads (a chain never
+    crosses components)."""
+    return [int(components[c.reads[0][0]]) for c in contigs]
+
+
+def contig_str(c: Contig) -> str:
+    """The contig's bases as an ``ACGT`` string."""
+    return "".join(BASES[int(x)] for x in c.codes)

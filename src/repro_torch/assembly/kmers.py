@@ -10,9 +10,25 @@ the reverse complement was taken.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 COMPLEMENT = 3  # complement(code) = 3 - code
+BASES = "ACGT"
+
+
+def encode_seq(s: str) -> torch.Tensor:
+    """``ACGT`` string → (len,) uint8 codes (case-insensitive; any other
+    character codes as A)."""
+    lut = {c: i for i, c in enumerate(BASES)}
+    return torch.tensor([lut.get(c, 0) for c in s.upper()], dtype=torch.uint8)
+
+
+def decode_seq(codes) -> str:
+    """Codes (tensor or array) → ``ACGT`` string."""
+    if isinstance(codes, torch.Tensor):
+        codes = codes.detach().cpu().numpy()
+    return "".join(BASES[int(c)] for c in np.asarray(codes))
 
 
 def revcomp(codes: torch.Tensor, length) -> torch.Tensor:

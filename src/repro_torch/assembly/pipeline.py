@@ -23,10 +23,16 @@ grid for SpGEMM and the P×1 grid for the other two, as JAX's default
 meshes.  Every rank calls ``assemble`` on the same reads and gets the same
 result; without a process group the grid is 1×1.  As in JAX, TrReduction
 stays local.
+
+Each stage is an ``obs.span``: ``AssemblyResult.timings`` holds the stage
+spans' durations, and ``trace=True`` keeps the span tree (stages →
+shard_map phases → ``op:<name>`` dispatches → kernel launches, each with
+its device-memory columns) on ``AssemblyResult.trace``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Dict
@@ -49,7 +55,7 @@ from ..core.transitive_reduction import (
     transitive_reduction,
     transitive_reduction_fused,
 )
-from ..obs import Metrics, Watermark, stage_timer, validated
+from ..obs import Metrics, Tracer, span, tracing, validated, watermark
 from . import alignment as al
 from .consensus import polish_contig_set
 from .contig_gen import generate_contigs
@@ -64,8 +70,7 @@ _I32 = torch.int32
 class PipelineConfig:
     """Knobs of ``assemble`` — those of the JAX ``PipelineConfig`` the
     port reads, plus ``device``.  ``mesh`` takes a
-    ``core.grid.ProcessGrid`` or ``None``; ``trace=True`` is not ported
-    yet and raises."""
+    ``core.grid.ProcessGrid`` or ``None``."""
 
     k: int = 15
     lower: int = 2  # reliable k-mer frequency window [lower, upper]
@@ -101,6 +106,9 @@ class PipelineConfig:
     # torch.distributed process grid)
     distribution: str = "gspmd"
     mesh: Any = None
+    # collect a hierarchical span trace (stage → shard_map phase → op →
+    # kernel launch) on AssemblyResult.trace; spans also open
+    # torch.profiler.record_function ranges of the same names
     trace: bool = False
     # where the pipeline runs; a CUDA device that is absent raises
     device: str = "cuda"
@@ -117,6 +125,7 @@ class AssemblyResult:
     timings: Dict[str, float]
     contained: Any = None  # (n,) bool
     consensus: Any = None  # ConsensusResult when cfg.polish
+    trace: Any = None  # obs.Tracer with the span tree when cfg.trace
 
     @functools.cached_property
     def polished_contigs(self) -> list:
@@ -126,23 +135,37 @@ class AssemblyResult:
 
 def _check_supported(cfg: PipelineConfig) -> None:
     resolve_distribution(cfg.distribution)
-    if cfg.trace:
-        raise NotImplementedError(
-            "trace=True is not ported yet (ROADMAP.md queue 1, item 9: "
-            "span tracer and Chrome export)"
-        )
     if cfg.mesh is not None:
         resolve_grid(cfg.mesh, "square")  # a ProcessGrid, or raise
+
+
+@contextlib.contextmanager
+def _tic(timings, key):
+    """Stage timing as a thin wrapper over :func:`repro_torch.obs.span` —
+    the one timing path.  The span synchronises the device of whatever
+    the body passes to ``sp.set_output``, so the recorded time covers the
+    stage's kernels, and the stage appears in the active tracer's tree."""
+    with span(key, kind="stage") as sp:
+        yield sp
+    timings[key] = timings.get(key, 0.0) + sp.duration_s
 
 
 def assemble(codes, lengths, cfg: PipelineConfig = PipelineConfig()
              ) -> AssemblyResult:
     """Run the whole pipeline on ``cfg.device``: ``codes`` (n, L) uint8 and
-    ``lengths`` (n,) int32 (numpy arrays or tensors)."""
+    ``lengths`` (n,) int32 (numpy arrays or tensors).
+
+    The run executes under a device-memory watermark (``obs.memory``), so
+    the stats carry the ``peak_hbm_bytes`` family; on a CUDA device the
+    allocator's peak is reset first, so the peak is this run's."""
     _check_supported(cfg)
     device = resolve_device(cfg.device)
-    with Watermark(device) as wm:
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    tracer = Tracer(annotate=True, device=device) if cfg.trace else None
+    with watermark(device) as wm, tracing(tracer):
         res = _assemble(codes, lengths, cfg, device)
+    res.trace = tracer
     res.stats.update(validated({
         "peak_hbm_bytes": wm.peak_hbm_bytes,
         "hbm_bytes_in_use": wm.hbm_bytes_in_use,
@@ -241,9 +264,10 @@ def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
     metrics.emit("backend", backend)
 
     # --- CountKmer ---
-    with stage_timer(timings, "CountKmer", device):
+    with _tic(timings, "CountKmer") as sp:
         kmers = extract_kmers(codes, lengths, k=cfg.k)
-        kc = count_and_select(kmers, lower=cfg.lower, upper=cfg.upper)
+        kc = sp.set_output(
+            count_and_select(kmers, lower=cfg.lower, upper=cfg.upper))
         del kmers
     metrics.emit_many({
         "m_reliable": int(kc.m_reliable),
@@ -255,18 +279,19 @@ def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
             f"m_capacity too small: {int(kc.m_reliable)} > {cfg.m_capacity}")
 
     # --- CreateSpMat: A and Aᵀ ---
-    with stage_timer(timings, "CreateSpMat", device):
+    with _tic(timings, "CreateSpMat") as sp:
         a, at, ovf_a, _ = build_matrices(
             kc, n_reads=int(n), m_capacity=cfg.m_capacity,
             read_capacity=cfg.read_capacity, kmer_capacity=cfg.upper,
         )
+        sp.set_output((a.cols, at.cols))
         del kc
     metrics.emit("overflow_A", int(ovf_a))
     metrics.emit("nnz_A", int(a.nnz()))
 
     # --- SpGEMM: C = A·Aᵀ under the overlap semiring ---
     shard_map = cfg.distribution == "shard_map"
-    with stage_timer(timings, "SpGEMM", device):
+    with _tic(timings, "SpGEMM") as sp:
         if shard_map:
             c_mat, ovf_c, summa_stats = overlap_spgemm_shard_map(
                 a, at, semiring=overlap_semiring,
@@ -276,6 +301,7 @@ def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
         else:
             c_mat, ovf_c = spgemm(a, at, semiring=overlap_semiring,
                                   capacity=cfg.overlap_capacity)
+        sp.set_output(c_mat.cols)
         del a, at
     if shard_map:
         metrics.emit("overlap_distribution", "shard_map")
@@ -288,10 +314,11 @@ def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
     metrics.emit("c_density", metrics["nnz_C"] / max(1, int(n)))
 
     # --- Pairwise alignment on nnz(C) (upper triangle; each pair once) ---
-    with stage_timer(timings, "Alignment", device):
+    with _tic(timings, "Alignment") as sp:
         (pair_i, pair_j, pv, strand, li, lj, res, n_live, e_total, bucket,
          align_stats) = _align_candidates(codes, lengths, c_mat, n, cfg,
                                           backend, device)
+        sp.set_output(res.score)
     if shard_map:
         metrics.emit("align_distribution", "shard_map")
         metrics.emit_many(align_stats)
@@ -310,24 +337,25 @@ def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
     })
 
     # --- Build R: classify overlaps, drop contained ---
-    with stage_timer(timings, "BuildR", device):
+    with _tic(timings, "BuildR") as sp:
         cls = classify_overlaps(res.bi, res.ei, li, res.bj, res.ej, lj, strand,
                                 end_fuzz=cfg.end_fuzz)
         r_mat, contained, ovf_r = build_overlap_graph(
             pair_i, pair_j, cls, passed, n_reads=int(n),
             capacity=cfg.r_capacity,
         )
-        r_mat = drop_contained(r_mat, contained)
+        r_mat = sp.set_output(drop_contained(r_mat, contained))
     metrics.emit("overflow_R", int(ovf_r))
     metrics.emit("nnz_R", int(r_mat.nnz()))
     metrics.emit("r_density", metrics["nnz_R"] / max(1, int(n)))
     metrics.emit("n_contained", int(torch.sum(contained)))
 
     # --- TrReduction: Algorithm 2 ---
-    with stage_timer(timings, "TrReduction", device):
+    with _tic(timings, "TrReduction") as sp:
         tr = transitive_reduction_fused if cfg.fused_tr else transitive_reduction
         s_mat, tr_stats = tr(r_mat, fuzz=cfg.tr_fuzz,
                              max_iters=cfg.tr_max_iters, backend=backend)
+        sp.set_output(s_mat.cols)
     metrics.emit("tr_iterations", int(tr_stats.iterations))
     # the path that ran: the fused variant downgrades "cuda" to the ELL
     # square above TR_DENSE_MAX_ROWS
@@ -337,12 +365,13 @@ def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
     metrics.emit("s_density", metrics["nnz_S"] / max(1, int(n)))
 
     # --- Contigs (host walk or device path) ---
-    with stage_timer(timings, "Contigs", device):
+    with _tic(timings, "Contigs") as sp:
         cset = generate_contigs(s_mat, codes, lengths, contained,
                                 backend=backend, distribution=cfg.distribution,
                                 mesh=cfg.mesh)
         contigs = cset.to_contigs()
         cs = contig_stats(contigs)
+        sp.set_output(cset.codes)
     metrics.emit("contigs", dataclasses.asdict(cs))
     metrics.emit("n_branch_cut", cset.stats["n_branch_cut"])
     metrics.emit("cc_iterations", cset.stats["cc_iterations"])
@@ -356,11 +385,12 @@ def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
     # --- Consensus: pileup polishing of the contig tensor ---
     cres = None
     if cfg.polish:
-        with stage_timer(timings, "Consensus", device):
+        with _tic(timings, "Consensus") as sp:
             cres = polish_contig_set(
                 cset, codes, lengths, backend=backend,
                 min_depth=cfg.min_depth, junction_radius=cfg.junction_radius,
             )
+            sp.set_output(cres.codes)
         metrics.emit_many({
             "consensus_depth_mean": cres.stats["consensus_depth_mean"],
             "identity_estimate": cres.stats["identity_estimate"],

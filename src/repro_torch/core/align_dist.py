@@ -30,7 +30,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from .grid import ProcessGrid, resolve_grid
-from ..obs import validated
+from ..obs import span, validated
 
 #: arrays of a PairAlignment result (score, bi, ei, bj, ej)
 ALIGN_OUTPUTS = 5
@@ -102,24 +102,32 @@ def align_bucket_shard_map(codes, cand: Dict[str, Any], *, k: int,
 
     c = {key: local(cand[key]) for key in _CAND_KEYS}
     acct = {"words": 0, "rounds": 0}
-    codes_full = _counted_gather(
-        grid, codes[grid.i * n_loc:(grid.i + 1) * n_loc].contiguous(), acct)
+    with span("Alignment", kind="phase", phase="pair_exchange", p=p,
+              bucket=bucket_pad) as sp:
+        with span("Alignment", kind="phase", phase="gather_reads"):
+            codes_full = _counted_gather(
+                grid, codes[grid.i * n_loc:(grid.i + 1) * n_loc].contiguous(),
+                acct)
 
-    ai = codes_full[c["i"].to(torch.int64)]
-    bj = codes_full[c["j"].to(torch.int64)]
-    bj = torch.where((c["strand"] == 1)[:, None], revcomp(bj, c["lj"]), bj)
-    out = al.batch_extend(ai, c["li"], bj, c["lj"], c["pa"], c["pb"], k=k,
-                          backend=backend, xdrop=xdrop, match=match,
-                          mismatch=mismatch, gap=gap, band=band,
-                          max_steps=max_steps)
+        with span("Alignment", kind="phase", phase="extend"):
+            ai = codes_full[c["i"].to(torch.int64)]
+            bj = codes_full[c["j"].to(torch.int64)]
+            bj = torch.where((c["strand"] == 1)[:, None],
+                             revcomp(bj, c["lj"]), bj)
+            out = al.batch_extend(ai, c["li"], bj, c["lj"], c["pa"], c["pb"],
+                                  k=k, backend=backend, xdrop=xdrop,
+                                  match=match, mismatch=mismatch, gap=gap,
+                                  band=band, max_steps=max_steps)
 
-    buf = torch.zeros((ALIGN_OUTPUTS, bucket_pad), dtype=torch.int32,
-                      device=dev)
-    buf[:, lo:lo + blk] = torch.stack(tuple(out)).to(torch.int32)
-    if p > 1:
-        acct["words"] += 2 * (ALIGN_OUTPUTS * bucket_pad // p) * (p - 1)
-        acct["rounds"] += 1
-    full = grid.psum(buf, "data")
+        with span("Alignment", kind="phase", phase="scatter_scores"):
+            buf = torch.zeros((ALIGN_OUTPUTS, bucket_pad), dtype=torch.int32,
+                              device=dev)
+            buf[:, lo:lo + blk] = torch.stack(tuple(out)).to(torch.int32)
+            if p > 1:
+                acct["words"] += 2 * (ALIGN_OUTPUTS * bucket_pad // p) * (p - 1)
+                acct["rounds"] += 1
+            full = grid.psum(buf, "data")
+        sp.set_output(full)
 
     res = al.PairAlignment(*(full[t, :bucket] for t in range(ALIGN_OUTPUTS)))
     stats = validated({

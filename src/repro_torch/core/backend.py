@@ -14,16 +14,19 @@ This module decides, per op, which one runs:
 
 The op names and signatures are those of the JAX package's seam
 (``repro.core.backend``): ``xdrop_extend``, ``minplus_dense``,
-``spgemm_ring_stages``, ``contig_gen`` and ``consensus``.  Registered
-implementations of one op agree exactly, so either may stand for the
-other.
+``spgemm_ring_stages``, ``cc_labels``, ``contig_gen`` and ``consensus``.
+Registered implementations of one op agree exactly, so either may stand
+for the other.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Tuple
 
 import torch
+
+from ..obs.trace import span
 
 BACKENDS = ("auto", "reference", "cuda")
 
@@ -66,10 +69,19 @@ def resolve_distribution(distribution: str = "gspmd") -> str:
 
 
 def register_op(op: str, backend: str, fn: Callable) -> Callable:
-    """Register ``fn`` as the ``backend`` implementation of ``op``."""
+    """Register ``fn`` as the ``backend`` implementation of ``op``, wrapped
+    once in an ``obs.span`` named ``"op:<op>"`` (kind ``"op"``): the one
+    place every dispatched call gets its span, so traces nest stage → phase
+    → op → kernel launch.  Returns ``fn`` itself."""
     if backend not in BACKENDS or backend == "auto":
         raise ValueError(f"backend must be 'reference' or 'cuda', got {backend!r}")
-    _REGISTRY[(op, backend)] = fn
+
+    @functools.wraps(fn)
+    def dispatched(*args, **kwargs):
+        with span(f"op:{op}", kind="op", op=op, backend=backend):
+            return fn(*args, **kwargs)
+
+    _REGISTRY[(op, backend)] = dispatched
     return fn
 
 
@@ -87,8 +99,8 @@ def _ensure_registered() -> None:
 
 
 def dispatch(op: str, backend: str = "auto", device="cuda") -> Callable:
-    """The implementation of ``op`` for ``backend`` (``"auto"`` resolved
-    against ``device``)."""
+    """The registered implementation of ``op`` for ``backend`` (``"auto"``
+    resolved against ``device``) in its op span (:func:`register_op`)."""
     b = resolve_backend(backend, device)
     key = (op, b)
     if key not in _REGISTRY:

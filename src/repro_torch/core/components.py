@@ -7,15 +7,14 @@ The PyTorch counterpart of ``repro.core.components`` (DESIGN.md §2.7):
   suffix values;
 * ``degrees`` — out-degree per row, in-degree per column;
 * ``break_cycles`` / ``chain_rank`` / ``path_components`` — pointer
-  doubling over a functional successor/predecessor pair, O(log n) rounds.
-
-``connected_components`` waits for the port of the ``cc`` kernel (ROADMAP
-queue 2, item 5) and raises until then.
+  doubling over a functional successor/predecessor pair, O(log n) rounds;
+* ``connected_components`` — min-label hook/shortcut components of any
+  ELL adjacency, dispatched as the op ``cc_labels`` (``kernels/cc``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -67,12 +66,30 @@ def degrees(adj: EllMatrix) -> Tuple[torch.Tensor, torch.Tensor]:
     return out_deg, in_deg
 
 
-def connected_components(adj: EllMatrix, *, max_iters=None, backend="auto"):
-    """Not ported yet: needs the ``cc`` kernel (ROADMAP queue 2, item 5)."""
-    raise NotImplementedError(
-        "connected_components is not ported yet (ROADMAP.md queue 2, item 5: "
-        "kernels/cc); the contig stage uses path_components"
-    )
+def connected_components(adj: EllMatrix, *, max_iters: Optional[int] = None,
+                         backend: str = "auto") -> Tuple[torch.Tensor, int]:
+    """Minimum-label connected components of an ELL adjacency, treated as
+    undirected (labels hook across ``u→v`` in both directions).
+
+    Each round hooks (a min over out-neighbours, then over in-neighbours)
+    and shortcuts (``l ← l[l]``); the loop ends when labels stop changing.
+    Typical graphs converge in O(log n) rounds, but an adversarial vertex
+    order (a path with its ids permuted along it) needs Θ(n), so the
+    default cap is ``n``.  For the disjoint paths of the contig stage use
+    :func:`path_components`, O(log n) unconditionally.
+
+    The loop is the op ``cc_labels``: ``"reference"`` runs one round at a
+    time and reports the exact rounds to convergence; ``"cuda"`` runs eight
+    rounds per launch of the ``cc`` kernel and reports the rounds executed
+    (a multiple of eight plus a tail); the labels are identical.  ``"auto"``
+    resolves against the adjacency's device.
+
+    Returns ``(labels (n,) int32 — the minimum vertex id of each
+    component, n_iterations)``."""
+    from .backend import dispatch
+
+    return dispatch("cc_labels", backend, adj.cols.device)(
+        adj.cols, max_iters=max_iters)
 
 
 def _jump(t: torch.Tensor, m: torch.Tensor):

@@ -32,6 +32,7 @@ import torch
 
 from .components import _log2_ceil, expand_state_rows
 from .grid import ProcessGrid, resolve_grid
+from ..obs import span
 
 _I32 = torch.int32
 
@@ -274,64 +275,71 @@ def _chain_stage_local(grid: ProcessGrid, cols_l, vals_l, n_read_pad: int,
 
     # --- branch cut: local state rows, per-shard degree tally, one psum
     # round ---
-    g_cols, g_vals = expand_state_rows(cols_l, vals_l)
-    mask = g_cols >= 0
-    out_deg_l = torch.sum(mask, dim=1).to(_I32)
-    tally_to = torch.where(mask, g_cols, n_states).reshape(-1).to(torch.int64)
-    tally = torch.zeros(n_states + 1, dtype=_I32, device=dev)
-    tally.index_add_(0, tally_to, torch.ones_like(tally_to, dtype=_I32))
-    in_deg = psum_all(tally[:n_states])  # global in-degree, replicated
+    with span("Contigs", kind="phase", phase="cut"):
+        g_cols, g_vals = expand_state_rows(cols_l, vals_l)
+        mask = g_cols >= 0
+        out_deg_l = torch.sum(mask, dim=1).to(_I32)
+        tally_to = torch.where(mask, g_cols, n_states).reshape(-1).to(torch.int64)
+        tally = torch.zeros(n_states + 1, dtype=_I32, device=dev)
+        tally.index_add_(0, tally_to, torch.ones_like(tally_to, dtype=_I32))
+        in_deg = psum_all(tally[:n_states])  # global in-degree, replicated
 
-    tgt = torch.amax(torch.where(mask, g_cols, -1), dim=1)
-    suf = torch.sum(torch.where(mask, g_vals, 0.0), dim=1)
-    tgt_safe = torch.where(tgt >= 0, tgt, 0).to(torch.int64)
-    kept = (out_deg_l == 1) & (tgt >= 0) & (in_deg[tgt_safe] == 1)
-    succ_l = torch.where(kept, tgt, -1).to(_I32)
-    n_branch_cut = int(psum_all(
-        (torch.sum(out_deg_l) - torch.sum(kept)).to(_I32).reshape(1))[0])
+        tgt = torch.amax(torch.where(mask, g_cols, -1), dim=1)
+        suf = torch.sum(torch.where(mask, g_vals, 0.0), dim=1)
+        tgt_safe = torch.where(tgt >= 0, tgt, 0).to(torch.int64)
+        kept = (out_deg_l == 1) & (tgt >= 0) & (in_deg[tgt_safe] == 1)
+        succ_l = torch.where(kept, tgt, -1).to(_I32)
+        n_branch_cut = psum_all(
+            (torch.sum(out_deg_l) - torch.sum(kept)).to(_I32).reshape(1))[0]
 
-    # pred / in-suffix: in-degree 1 at the target makes both scatters
-    # single-writer, so a −1-initialised pmax (resp. 0-initialised psum)
-    # equals the single-device scatter; each rank slices its own chunk
-    scat = torch.where(kept, succ_l, n_states).to(torch.int64)
-    pred_buf = torch.full((n_states + 1,), -1, dtype=_I32, device=dev)
-    pred_buf.scatter_reduce_(0, scat, ids_l, "amax", include_self=True)
-    chunk = slice(idx * n_loc, (idx + 1) * n_loc)
-    pred_l = grid.pmax(pred_buf[:n_states], "data")[chunk]
-    insuf_buf = torch.zeros(n_states + 1, dtype=torch.float32, device=dev)
-    insuf_buf[scat[kept]] = suf[kept]
-    insuf_l = psum_all(insuf_buf[:n_states])[chunk]
-    in_deg_l = in_deg[chunk]
-    has_edge_l = (out_deg_l + in_deg_l).reshape(-1, 2).sum(dim=1) > 0
+        # pred / in-suffix: in-degree 1 at the target makes both scatters
+        # single-writer, so a −1-initialised pmax (resp. 0-initialised psum)
+        # equals the single-device scatter; each rank slices its own chunk
+        scat = torch.where(kept, succ_l, n_states).to(torch.int64)
+        pred_buf = torch.full((n_states + 1,), -1, dtype=_I32, device=dev)
+        pred_buf.scatter_reduce_(0, scat, ids_l, "amax", include_self=True)
+        chunk = slice(idx * n_loc, (idx + 1) * n_loc)
+        pred_l = grid.pmax(pred_buf[:n_states], "data")[chunk]
+        insuf_buf = torch.zeros(n_states + 1, dtype=torch.float32, device=dev)
+        insuf_buf[scat[kept]] = suf[kept]
+        insuf_l = psum_all(insuf_buf[:n_states])[chunk]
+        in_deg_l = in_deg[chunk]
+        has_edge_l = (out_deg_l + in_deg_l).reshape(-1, 2).sum(dim=1) > 0
+    n_branch_cut = int(n_branch_cut)
 
-    # --- doubling middle ---
-    _, _, labels, head, rank, _, pc_iters, cr_iters = _doubling_phases(
-        succ_l, pred_l, ids_l, gather, psum_all, max_rounds)
+    # --- doubling middle (its convergence tests read a flag on the host
+    # each round, as the loop needs them) ---
+    with span("Contigs", kind="phase", phase="doubling"):
+        _, _, labels, head, rank, _, pc_iters, cr_iters = _doubling_phases(
+            succ_l, pred_l, ids_l, gather, psum_all, max_rounds)
 
     # --- chain ordering: ring-bitonic merge-split sort of the (labkey,
     # rank, idx) triples; idx makes keys unique, so the sorted order equals
     # the single-device stable sort by (labkey, rank) ---
-    out_deg_g = gather(out_deg_l)  # eligibility: out_deg[head]
-    elig_l = out_deg_g[head.to(torch.int64)] > 0
-    labkey = torch.where(elig_l, labels, _SORT_BIG)
-    labkey = torch.where(ids_l >= 2 * n_reads, _SORT_BIG + 1, labkey).to(_I32)
-    order = _lexsort(ids_l, rank, labkey)
-    k1, k2, k3 = labkey[order], rank[order], ids_l[order]
-    for pairs in sort_network(p):
-        perm = [pq for ab in pairs for pq in (ab, ab[::-1])]
-        role = 0
-        for lo, hi in pairs:
-            role = 1 if idx == lo else (-1 if idx == hi else role)
-        r1 = grid.ppermute(k1, "data", perm)
-        r2 = grid.ppermute(k2, "data", perm)
-        r3 = grid.ppermute(k3, "data", perm)
-        if role == 0:
-            continue  # an idle shard (odd-P transposition) keeps its block
-        c1, c2, c3 = (torch.cat([k1, r1]), torch.cat([k2, r2]),
-                      torch.cat([k3, r3]))
-        o = _lexsort(c3, c2, c1)
-        sel = o[:n_loc] if role > 0 else o[n_loc:]
-        k1, k2, k3 = c1[sel], c2[sel], c3[sel]
+    stages = sort_network(p)
+    with span("Contigs", kind="phase", phase="sort",
+              sort_stages=len(stages)):
+        out_deg_g = gather(out_deg_l)  # eligibility: out_deg[head]
+        elig_l = out_deg_g[head.to(torch.int64)] > 0
+        labkey = torch.where(elig_l, labels, _SORT_BIG)
+        labkey = torch.where(ids_l >= 2 * n_reads, _SORT_BIG + 1, labkey).to(_I32)
+        order = _lexsort(ids_l, rank, labkey)
+        k1, k2, k3 = labkey[order], rank[order], ids_l[order]
+        for pairs in stages:
+            perm = [pq for ab in pairs for pq in (ab, ab[::-1])]
+            role = 0
+            for lo, hi in pairs:
+                role = 1 if idx == lo else (-1 if idx == hi else role)
+            r1 = grid.ppermute(k1, "data", perm)
+            r2 = grid.ppermute(k2, "data", perm)
+            r3 = grid.ppermute(k3, "data", perm)
+            if role == 0:
+                continue  # an idle shard (odd-P transposition) keeps its block
+            c1, c2, c3 = (torch.cat([k1, r1]), torch.cat([k2, r2]),
+                          torch.cat([k3, r3]))
+            o = _lexsort(c3, c2, c1)
+            sel = o[:n_loc] if role > 0 else o[n_loc:]
+            k1, k2, k3 = c1[sel], c2[sel], c3[sel]
 
     # chain boundaries: the previous element's labkey, shipped across the
     # shard seam by a one-hop ring shift
@@ -386,10 +394,11 @@ def contig_stage_shard_map(s, *, mesh: Optional[ProcessGrid] = None
                                            float("inf"), dtype=vals.dtype,
                                            device=dev)])
     rows = slice(grid.i * (n_read_pad // p), (grid.i + 1) * (n_read_pad // p))
-    shards, (n_chains, max_chain, n_branch_cut, pc_iters, cr_iters) = (
-        _chain_stage_local(grid, cols[rows], vals[rows], n_read_pad, n))
-    state_s, elig_s, rank_s, chain_idx_s, new_chain, insuf, has_edge = (
-        grid.all_gather(x, "data") for x in shards)
+    with span("Contigs", kind="phase", phase="chain_stage", p=p) as sp:
+        shards, (n_chains, max_chain, n_branch_cut, pc_iters, cr_iters) = (
+            _chain_stage_local(grid, cols[rows], vals[rows], n_read_pad, n))
+        state_s, elig_s, rank_s, chain_idx_s, new_chain, insuf, has_edge = (
+            sp.set_output([grid.all_gather(x, "data") for x in shards]))
     n2, n_pad = 2 * n, 2 * n_read_pad
     st = {
         "state_s": state_s[:n2],

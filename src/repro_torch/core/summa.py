@@ -46,7 +46,7 @@ from .grid import ProcessGrid, resolve_grid
 from .semiring import INF, MP, Semiring, minplus_orient_semiring as MPSR
 from .spgemm import spgemm, spgemm_masked
 from .spmat import EllMatrix, NO_COL, from_coo, merge_sorted_rows, prune
-from ..obs import schema, validated
+from ..obs import schema, span, validated
 
 _I32 = torch.int32
 #: ring stages per ``spgemm_ring_stages`` launch (JAX's
@@ -337,44 +337,54 @@ def summa_ring(a: DistEll, b: DistEll, *, semiring: Semiring,
                 grid.ppermute(bc, "data", left),
                 _tree(bv, lambda v: grid.ppermute(v, "data", left)))
 
-    cur = _skew_local(a.mat, b.mat, grid)
-    chunks_cols, chunks_vals = [], []
-    ovf = torch.zeros((), dtype=_I32, device=dev)
-    s = 0
-    while s < pc:
-        sc = min(g, pc - s)
-        panels = [cur]
-        for _ in range(sc - 1):
-            cur = rotate(*cur)
-            panels.append(cur)
-        st_a_cols = _stack([p[0] for p in panels])
-        st_a_vals = {k: _stack([p[1][k] for p in panels]) for k in cur[1]}
-        st_b_cols = _stack([p[2] for p in panels])
-        st_b_vals = {k: _stack([p[3][k] for p in panels]) for k in cur[3]}
-        offsets = (((i + j + s + torch.arange(sc, device=dev)) % pc) * nb_b
-                   ).to(_I32)
-        if s + sc < pc:
-            cur = rotate(*cur)  # feeds the next batch
-        cc, cv, so = op(offsets, st_a_cols, st_a_vals, st_b_cols, st_b_vals,
-                        semiring=semiring, capacity=out_block_capacity,
-                        n_cols_out=n_cols_out)
-        chunks_cols.append(cc)
-        chunks_vals.append(cv)
-        ovf = ovf + so
-        s += sc
-    st_cols = torch.cat(chunks_cols, dim=0)  # (pc, n_loc, cap)
-    st_vals = {k: torch.cat([c[k] for c in chunks_vals], dim=0)
-               for k in chunks_vals[0]}
-    # canonical reorder: buffer q ← the stage that produced k-block q
-    order = (torch.arange(pc, device=dev) - (i + j)) % pc
-    width = pc * out_block_capacity
-    merged_cols = st_cols[order].transpose(0, 1).reshape(n_loc, width)
-    merged_vals = _tree(st_vals, lambda v: v[order].transpose(0, 1).reshape(
-        (n_loc, width) + v.shape[3:]))
-    mc, mv, mo = merge_sorted_rows(merged_cols, merged_vals,
-                                   capacity=out_block_capacity,
-                                   semiring=semiring)
-    ovf = grid.psum((ovf + mo).reshape(1), ("data", "model"))[0]
+    with span("SpGEMM", kind="phase", phase="skew"):
+        cur = _skew_local(a.mat, b.mat, grid)
+    with span("SpGEMM", kind="phase", phase="ring", pc=pc,
+              stages_per_call=g) as sp:
+        chunks_cols, chunks_vals = [], []
+        ovf = torch.zeros((), dtype=_I32, device=dev)
+        s = 0
+        while s < pc:
+            sc = min(g, pc - s)
+            with span("SpGEMM", kind="phase", phase="ring_stage", s=s,
+                      stages=sc):
+                panels = [cur]
+                for _ in range(sc - 1):
+                    cur = rotate(*cur)
+                    panels.append(cur)
+                st_a_cols = _stack([p[0] for p in panels])
+                st_a_vals = {k: _stack([p[1][k] for p in panels])
+                             for k in cur[1]}
+                st_b_cols = _stack([p[2] for p in panels])
+                st_b_vals = {k: _stack([p[3][k] for p in panels])
+                             for k in cur[3]}
+                offsets = (((i + j + s + torch.arange(sc, device=dev)) % pc)
+                           * nb_b).to(_I32)
+                if s + sc < pc:
+                    cur = rotate(*cur)  # feeds the next batch
+                cc, cv, so = op(offsets, st_a_cols, st_a_vals, st_b_cols,
+                                st_b_vals, semiring=semiring,
+                                capacity=out_block_capacity,
+                                n_cols_out=n_cols_out)
+            chunks_cols.append(cc)
+            chunks_vals.append(cv)
+            ovf = ovf + so
+            s += sc
+        st_cols = torch.cat(chunks_cols, dim=0)  # (pc, n_loc, cap)
+        st_vals = {k: torch.cat([c[k] for c in chunks_vals], dim=0)
+                   for k in chunks_vals[0]}
+        # canonical reorder: buffer q ← the stage that produced k-block q
+        order = (torch.arange(pc, device=dev) - (i + j)) % pc
+        width = pc * out_block_capacity
+        merged_cols = st_cols[order].transpose(0, 1).reshape(n_loc, width)
+        merged_vals = _tree(st_vals, lambda v: v[order].transpose(0, 1)
+                            .reshape((n_loc, width) + v.shape[3:]))
+        with span("SpGEMM", kind="phase", phase="stage_merge"):
+            mc, mv, mo = merge_sorted_rows(merged_cols, merged_vals,
+                                           capacity=out_block_capacity,
+                                           semiring=semiring)
+        ovf = grid.psum((ovf + mo).reshape(1), ("data", "model"))[0]
+        sp.set_output((mc, ovf))
     fused = resolved == "cuda" and dev.type == "cuda"  # the kernel ran
     stats = validated({
         "summa_algorithm": "ring",
@@ -425,17 +435,22 @@ def overlap_spgemm_shard_map(a: EllMatrix, b: EllMatrix, *,
     n_rows = a.cols.shape[0]
     a_pad = _pad_rows(a, grid.pr, operand_semiring)
     b_pad = _pad_rows(b, grid.pr, operand_semiring)
-    da, ovf_da = distribute_ell_blocks(a_pad, block_capacity=a.capacity,
-                                       semiring=operand_semiring, mesh=grid)
-    db, ovf_db = distribute_ell_blocks(b_pad, block_capacity=b.capacity,
-                                       semiring=operand_semiring, mesh=grid)
+    with span("SpGEMM", kind="phase", phase="distribute") as sp:
+        da, ovf_da = distribute_ell_blocks(
+            a_pad, block_capacity=a.capacity, semiring=operand_semiring,
+            mesh=grid)
+        db, ovf_db = distribute_ell_blocks(
+            b_pad, block_capacity=b.capacity, semiring=operand_semiring,
+            mesh=grid)
+        sp.set_output((da.mat.cols, db.mat.cols))
     cd, ovf_ring, stats = summa_ring(da, db, semiring=semiring,
                                      out_block_capacity=capacity,
                                      backend=backend,
                                      stages_per_call=stages_per_call)
-    g = collect(cd)
-    mc, mv, mo = merge_sorted_rows(g.cols, g.vals, capacity=capacity,
-                                   semiring=semiring)
+    with span("SpGEMM", kind="phase", phase="collect_merge"):
+        g = collect(cd)
+        mc, mv, mo = merge_sorted_rows(g.cols, g.vals, capacity=capacity,
+                                       semiring=semiring)
     out = EllMatrix(cols=mc[:n_rows], vals=_tree(mv, lambda v: v[:n_rows]),
                     n_cols=b.n_cols)
     return out, ovf_da + ovf_db + ovf_ring + mo, stats

@@ -5,6 +5,8 @@
   pileup/  — banded pileup + majority vote (Consensus)
   spgemm/  — ring-SUMMA local SpGEMM stages (SpGEMM and the distributed
              transitive reduction under ``distribution="shard_map"``)
+  cc/      — fused hook/shortcut connected-components rounds
+             (``core.components.connected_components``)
 
 Sources are ``repro_torch/csrc/<name>.cu``; ``build.py`` compiles and binds
 them.  Importing this package registers every kernel and its plain version
@@ -14,6 +16,8 @@ with the dispatch seam in ``core/backend.py``.  Each wrapper's
 
 from typing import Dict
 
+from .cc import KERNEL as _CC
+from .cc import cc_labels_cuda, cc_labels_ref, cc_rounds, cc_rounds_ref  # noqa: F401
 from .minplus import KERNEL as _MINPLUS
 from .minplus import minplus_matmul, minplus_matmul_ref  # noqa: F401
 from .pileup import KERNEL as _PILEUP
@@ -24,7 +28,7 @@ from .xdrop import KERNEL as _XDROP
 from .xdrop import xdrop_extend_batch, xdrop_extend_batch_ref  # noqa: F401
 
 #: every kernel of the port, by name
-KERNELS = {k.name: k for k in (_XDROP, _MINPLUS, _PILEUP, _SPGEMM)}
+KERNELS = {k.name: k for k in (_XDROP, _MINPLUS, _PILEUP, _SPGEMM, _CC)}
 
 
 def launch_counts() -> Dict[str, int]:

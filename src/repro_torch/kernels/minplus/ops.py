@@ -8,6 +8,7 @@ import ctypes
 import torch
 
 from ...core.backend import register_op
+from ...obs.trace import span
 from ..build import CudaKernel, check_cuda, check_dtype, stream_handle
 from .ref import minplus_matmul_ref
 
@@ -34,8 +35,10 @@ def minplus_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     n = b.shape[1]
     out = torch.empty((m, n, 4), dtype=torch.float32, device=dev)
     if m and n:
-        KERNEL.launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-                      stream_handle(a))
+        with span("kernel_launch", kind="kernel", kernel="minplus_dense",
+                  m=m, k=k, n=n):
+            KERNEL.launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+                          stream_handle(a))
     return out
 
 

@@ -9,6 +9,7 @@ import ctypes
 import torch
 
 from ...core.backend import register_op
+from ...obs.trace import span
 from ..build import CudaKernel, check_cuda, check_dtype, stream_handle
 from .ref import pileup_vote_ref
 
@@ -40,10 +41,12 @@ def pileup_vote(draft, pieces, start, plen, *, min_depth: int = 2):
     dep = torch.empty((c, l), dtype=torch.int32, device=dev)
     agr = torch.empty((c, l), dtype=torch.int32, device=dev)
     if c and l:
-        KERNEL.launch(draft.data_ptr(), pieces.data_ptr(), start.data_ptr(),
-                      plen.data_ptr(), pol.data_ptr(), dep.data_ptr(),
-                      agr.data_ptr(), c, l, m, lr, min_depth,
-                      stream_handle(draft))
+        with span("kernel_launch", kind="kernel", kernel="pileup_vote",
+                  contigs=c):
+            KERNEL.launch(draft.data_ptr(), pieces.data_ptr(),
+                          start.data_ptr(), plen.data_ptr(), pol.data_ptr(),
+                          dep.data_ptr(), agr.data_ptr(), c, l, m, lr,
+                          min_depth, stream_handle(draft))
     return pol, dep, agr
 
 

@@ -18,6 +18,7 @@ import torch
 
 from ...core.backend import register_op
 from ...core.semiring import MP, NUM_POS_PAIRS, Semiring
+from ...obs.trace import span
 from ..build import CudaKernel, check_cuda, check_dtype, stream_handle
 from .ref import spgemm_ring_stages_ref
 
@@ -116,11 +117,13 @@ def spgemm_ring_stages(offsets, a_cols, a_vals, b_cols, b_vals, *,
         leaves = [out[MP], out[MP], out[MP]]
     overflow = torch.zeros((1,), **i32)
     if stages and n:
-        KERNEL.launch(
-            sr_id, offsets.data_ptr(), a_cols.data_ptr(), av.data_ptr(),
-            b_cols.data_ptr(), bv.data_ptr(), out_cols.data_ptr(),
-            *(t.data_ptr() for t in leaves), overflow.data_ptr(),
-            stages, n, ka, nb, kb, capacity, stream_handle(a_cols))
+        with span("kernel_launch", kind="kernel", kernel="spgemm_ring_stages",
+                  stages=stages, rows=n):
+            KERNEL.launch(
+                sr_id, offsets.data_ptr(), a_cols.data_ptr(), av.data_ptr(),
+                b_cols.data_ptr(), bv.data_ptr(), out_cols.data_ptr(),
+                *(t.data_ptr() for t in leaves), overflow.data_ptr(),
+                stages, n, ka, nb, kb, capacity, stream_handle(a_cols))
     return out_cols, out, overflow[0]
 
 

@@ -13,6 +13,7 @@ import ctypes
 import torch
 
 from ...core.backend import register_op
+from ...obs.trace import span
 from ..build import CudaKernel, check_cuda, check_dtype, stream_handle
 from .ref import xdrop_extend_batch_ref
 
@@ -56,13 +57,14 @@ def xdrop_extend_batch(a, base_a, step_a, len_a, b, base_b, step_b, len_b, *,
                      for _ in range(3))
     if e == 0:
         return score, ai, bj
-    KERNEL.launch(
-        a.data_ptr(), a.shape[1], base_a.data_ptr(), step_a.data_ptr(),
-        len_a.data_ptr(), b.data_ptr(), b.shape[1], base_b.data_ptr(),
-        step_b.data_ptr(), len_b.data_ptr(), e, band, max_steps, xdrop, match,
-        mismatch, gap, score.data_ptr(), ai.data_ptr(), bj.data_ptr(),
-        stream_handle(a),
-    )
+    with span("kernel_launch", kind="kernel", kernel="xdrop_extend", pairs=e):
+        KERNEL.launch(
+            a.data_ptr(), a.shape[1], base_a.data_ptr(), step_a.data_ptr(),
+            len_a.data_ptr(), b.data_ptr(), b.shape[1], base_b.data_ptr(),
+            step_b.data_ptr(), len_b.data_ptr(), e, band, max_steps, xdrop,
+            match, mismatch, gap, score.data_ptr(), ai.data_ptr(),
+            bj.data_ptr(), stream_handle(a),
+        )
     return score, ai, bj
 
 

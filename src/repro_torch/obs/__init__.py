@@ -1,10 +1,37 @@
-"""Observability of the port: the stats schema, the validating metrics
-accumulator, a device-synchronised stage timer and the memory watermark."""
+"""Observability of the port: the same names as ``repro.obs``.
 
-from .metrics import (  # noqa: F401
-    Metrics,
-    MetricsError,
-    Watermark,
-    stage_timer,
-    validated,
-)
+* ``obs.trace`` — hierarchical :func:`span` timing with a device
+  synchronise on exit: the one timing path of stages, shard_map phases,
+  dispatched ops and kernel launches;
+* ``obs.schema`` / ``obs.metrics`` — the declared metric registry and the
+  validating :class:`Metrics` accumulator;
+* ``obs.export`` — Chrome trace-event / Perfetto JSON;
+* ``obs.memory`` — device-memory watermarks (the CUDA allocator's stats,
+  or live-tensor bytes on the CPU), carried by spans and by the stats.
+"""
+
+from . import schema
+from .export import span_tree, to_chrome_trace, write_chrome_trace
+from .memory import MemorySample, Watermark, sample, watermark
+from .metrics import Metrics, MetricsError, validated
+from .trace import Span, Tracer, current_tracer, span, sync, tracing
+
+__all__ = [
+    "Span",
+    "Tracer",
+    "current_tracer",
+    "span",
+    "sync",
+    "tracing",
+    "Metrics",
+    "MetricsError",
+    "validated",
+    "schema",
+    "span_tree",
+    "to_chrome_trace",
+    "write_chrome_trace",
+    "MemorySample",
+    "Watermark",
+    "sample",
+    "watermark",
+]

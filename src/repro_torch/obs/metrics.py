@@ -1,28 +1,15 @@
-"""Typed metrics registry, stage timer and device-memory watermark.
+"""Typed metrics registry: the emit surface over ``obs.schema``.
 
 :class:`Metrics` is the validating stats accumulator of the JAX package
 (``repro.obs.metrics``): every :meth:`Metrics.emit` checks the key against
 the declared schema at write time, and :meth:`Metrics.as_dict` returns the
-plain dict that ``AssemblyResult.stats`` carries.
-
-The timer and the watermark are the port's minimal stand-ins for the JAX
-package's span tracer and memory sampler:
-
-* :func:`stage_timer` synchronises the device before it reads the clock at
-  both ends, so a stage's time covers the kernels it launched and not only
-  their enqueue;
-* :class:`Watermark` reads ``torch.cuda.max_memory_allocated()`` over the
-  ``assemble`` window (``hbm_source="device_stats"``); on the CPU it reports
-  0 with ``hbm_source="live_buffers"``.
+plain dict that ``AssemblyResult.stats`` carries.  Stage timing is
+``obs.trace.span`` and memory is ``obs.memory``.
 """
 
 from __future__ import annotations
 
-import contextlib
-import time
 from typing import Any, Dict, Mapping
-
-import torch
 
 from . import schema
 
@@ -98,41 +85,3 @@ def validated(stats: Mapping[str, Any], *, context: str = "stats",
         raise MetricsError("; ".join(problems))
     return dict(stats)
 
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-@contextlib.contextmanager
-def stage_timer(timings: Dict[str, float], key: str, device: torch.device):
-    """Add the wall-clock seconds of the body to ``timings[key]``, with the
-    device synchronised before each clock read."""
-    _sync(device)
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        _sync(device)
-        timings[key] = timings.get(key, 0.0) + (time.perf_counter() - t0)
-
-
-class Watermark:
-    """Device-memory high-water mark over a window (``with Watermark(d)``)."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.peak_hbm_bytes = 0
-        self.hbm_bytes_in_use = 0
-        self.source = "device_stats" if device.type == "cuda" else "live_buffers"
-
-    def __enter__(self) -> "Watermark":
-        if self.device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(self.device)
-        return self
-
-    def __exit__(self, *exc) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-            self.peak_hbm_bytes = int(torch.cuda.max_memory_allocated(self.device))
-            self.hbm_bytes_in_use = int(torch.cuda.memory_allocated(self.device))

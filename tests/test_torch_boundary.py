@@ -13,7 +13,12 @@ import pytest
 import torch
 
 from repro_torch.kernels import build as kbuild
-from repro_torch.kernels import minplus_matmul, pileup_vote, xdrop_extend_batch
+from repro_torch.kernels import (
+    cc_rounds,
+    minplus_matmul,
+    pileup_vote,
+    xdrop_extend_batch,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
@@ -68,7 +73,7 @@ def test_port_import_pulls_in_no_jax():
     assert r.stdout.strip() == "[]"
 
 
-@pytest.mark.parametrize("which", ["xdrop", "minplus", "pileup"])
+@pytest.mark.parametrize("which", ["xdrop", "minplus", "pileup", "cc"])
 def test_kernel_wrapper_raises_on_non_cpu_request(which):
     """Tensors that are not on the CPU go to the kernel or raise: here they
     lie on the ``meta`` device, which no kernel takes."""
@@ -82,6 +87,9 @@ def test_kernel_wrapper_raises_on_non_cpu_request(which):
         elif which == "minplus":
             a = torch.empty(8, 8, 4, dtype=torch.float32, **m)
             minplus_matmul(a, a)
+        elif which == "cc":
+            cc_rounds(torch.empty(4, 2, **i32), torch.empty(4, 1, **i32),
+                      torch.empty(4, **i32), 8)
         else:
             pileup_vote(torch.empty(1, 10, **u8), torch.empty(1, 2, 10, **u8),
                         torch.empty(1, 2, **i32), torch.empty(1, 2, **i32))

@@ -168,10 +168,132 @@ def test_assemble_shard_map_on_card_matches_gspmd(card):
     K.reset_launch_counts()
     sm = assemble(rs.codes, rs.lengths,
                   dataclasses.replace(cfg, distribution="shard_map"))
-    assert all(v > 0 for v in K.launch_counts().values()), K.launch_counts()
+    counts = K.launch_counts()
+    assert all(counts[k] > 0 for k in ("xdrop", "minplus", "pileup", "spgemm")), \
+        counts
     assert sm.stats["summa_backend"] == "cuda"
     assert sm.stats["spgemm_hbm_round_trips"] == 1  # one launch on a 1x1 grid
     assert sm.stats["distribution"] == "shard_map"
     assert ell_equal(gs.r_graph, sm.r_graph) and ell_equal(gs.s_graph, sm.s_graph)
     assert [c.reads for c in gs.polished_contigs] == [
         c.reads for c in sm.polished_contigs]
+
+
+# --- cc: hook / in-hook / pointer-jump rounds ---------------------------------
+
+
+def _cc_graph(rng, n, k_out, empty_rows):
+    """Random out-neighbour ELL (n, k_out): ~half the slots live, and a
+    fraction of rows entirely empty."""
+    cols = rng.integers(0, n, (n, k_out))
+    cols = np.where(rng.random(cols.shape) < 0.5, cols, -1)
+    cols[rng.random(n) < empty_rows] = -1
+    return cols.astype(np.int32)
+
+
+def _chain(n, seed):
+    """A path with its vertex ids permuted along it (Θ(n) rounds)."""
+    perm = np.random.default_rng(seed).permutation(n)
+    cols = np.full((n, 1), -1, np.int32)
+    cols[perm[:-1], 0] = perm[1:]
+    return cols
+
+
+@pytest.mark.parametrize("rounds", [1, 3, 8])
+@pytest.mark.parametrize("n,k_out", [(1000, 3), (70000, 6)])
+def test_cc_kernel_matches_plain(card, rounds, n, k_out):
+    """One launch equals the plain rounds: labels and the changed flag,
+    from the identity labels and from a half-converged state; ``k_in``
+    differs from ``k_out`` and some rows are empty."""
+    from repro_torch.kernels.cc import transpose_ell
+
+    oc = torch.from_numpy(_cc_graph(np.random.default_rng(n + rounds), n,
+                                    k_out, 0.2)).to(card)
+    ic = transpose_ell(oc)
+    assert ic.shape[1] != k_out
+    lab = torch.arange(n, dtype=torch.int32, device=card)
+    before = K.KERNELS["cc"].launches
+    for _ in range(3):
+        got = K.cc_rounds(oc, ic, lab, rounds)
+        want = K.cc_rounds_ref(oc, ic, lab, rounds)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        assert int(got[1]) == int(want[1])
+        lab = want[0]
+    assert K.KERNELS["cc"].launches == before + 3
+
+
+@pytest.mark.parametrize("max_iters", [13, 1003])
+def test_cc_labels_capped_tail_matches_plain(card, max_iters):
+    """The chunk driver on the card equals the driver over the plain rounds
+    (labels and rounds executed) on a permuted chain that does not converge
+    within ``max_iters``: 8-round chunks and a tail; and the reference
+    backend's labels equal both."""
+    from repro_torch.kernels.cc import ops as cc_ops
+
+    cols = torch.from_numpy(_chain(1 << 12, 5)).to(card)
+    got = cc_ops.cc_labels_cuda(cols, max_iters=max_iters)
+    ic = cc_ops.transpose_ell(cols)
+    lab = torch.arange(cols.shape[0], dtype=torch.int32, device=card)
+    rounds = min(8, max_iters)
+    want_lab, want_it, _ = cc_ops._drive_chunks(
+        cols, ic, lab, rounds=rounds, n_chunks=max_iters // rounds,
+        rem=max_iters % rounds, rounds_fn=K.cc_rounds_ref)
+    assert got[1] == want_it == max_iters
+    assert torch.equal(got[0], want_lab)
+    ref = K.cc_labels_ref(cols, max_iters=max_iters)
+    assert torch.equal(ref[0], got[0]) and ref[1] == max_iters
+
+
+def test_cc_launch_refused_or_bad_input_raises(card):
+    oc = torch.from_numpy(_chain(100, 1)).to(card)
+    ic = oc.clone()
+    lab = torch.arange(100, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="int32"):
+        K.cc_rounds(oc, ic, lab.long(), 2)
+    with pytest.raises(ValueError, match="rounds"):
+        K.cc_rounds(oc, ic, lab, 0)
+    before = K.KERNELS["cc"].launches
+    out, l1, l2 = (torch.empty_like(lab) for _ in range(3))
+    chg = torch.zeros((), dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="cc kernel launch failed"):
+        K.KERNELS["cc"].launch(oc.data_ptr(), ic.data_ptr(), out.data_ptr(),
+                               l1.data_ptr(), l2.data_ptr(), chg.data_ptr(),
+                               100, -1, 1, 2,
+                               torch.cuda.current_stream().cuda_stream)
+    assert K.KERNELS["cc"].launches == before
+
+
+def test_cc_launch_spans_on_card(card):
+    """On the card each launch of the cc kernel opens one ``kernel_launch``
+    span with JAX's kernel name, under the op's dispatch span."""
+    from repro_torch.core.components import connected_components
+    from repro_torch.core.spmat import EllMatrix
+    from repro_torch.obs import Tracer, tracing
+
+    cols = torch.from_numpy(_chain(1 << 10, 3)).to(card)
+    adj = EllMatrix(cols=cols, vals={}, n_cols=cols.shape[0])
+    tr = Tracer(memory=False)
+    before = K.KERNELS["cc"].launches
+    with tracing(tr):
+        connected_components(adj, backend="cuda", max_iters=21)
+    (op,) = tr.roots
+    assert op.name == "op:cc_labels" and op.attrs["backend"] == "cuda"
+    assert len(op.children) == K.KERNELS["cc"].launches - before == 3
+    assert [sp.attrs["rounds"] for sp in op.children] == [8, 8, 5]
+    assert {sp.name for sp in op.children} == {"kernel_launch"}
+    assert {sp.attrs["kernel"] for sp in op.children} == {"cc_labels"}
+
+
+def test_memory_source_follows_the_run_device(card):
+    """With the CUDA allocator live in this process, a traced CPU run still
+    reports live tensors and a traced card run the allocator's stats."""
+    torch.ones(1, device=card)
+    assert torch.cuda.is_initialized()
+    rs = simulate_reads(simulate_genome(np.random.default_rng(7), 1500),
+                        depth=6, mean_len=300, std_len=30, min_len=200, seed=8)
+    for dev, source in (("cpu", "live_buffers"), ("cuda", "device_stats")):
+        res = assemble(rs.codes, rs.lengths,
+                       PipelineConfig(device=dev, trace=True))
+        assert res.stats["hbm_source"] == source
+        assert {sp.attrs["hbm_source"] for sp in res.trace.roots} == {source}

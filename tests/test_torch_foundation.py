@@ -88,7 +88,7 @@ def test_backend_resolution_and_registry():
     assert tb.resolve_distribution("shard_map") == "shard_map"
     assert tb.resolve_distribution("gspmd") == "gspmd"
     for op in ("xdrop_extend", "minplus_dense", "spgemm_ring_stages",
-               "contig_gen", "consensus"):
+               "cc_labels", "contig_gen", "consensus"):
         assert tb.available_backends(op) == ("cuda", "reference")
         assert callable(tb.dispatch(op, "cuda"))
     with pytest.raises(KeyError):

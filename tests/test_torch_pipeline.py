@@ -18,7 +18,6 @@ from repro.assembly.contig_gen import _device_contig_gen as j_device_contigs
 from repro.assembly.pipeline import assemble as j_assemble
 from repro_torch.assembly.pipeline import PipelineConfig, assemble
 from repro_torch.convert import config_from_dict, ell_from_numpy
-from repro_torch.core import components as tcomp
 from repro_torch.core.spmat import ell_equal
 from repro_torch.obs import schema
 
@@ -100,11 +99,13 @@ def test_stats_validate_and_compaction(golden):
                                     "Contigs", "Consensus"}
 
 
-@pytest.mark.parametrize("field,value", [("trace", True), ("mesh", object())])
+@pytest.mark.parametrize("field,value", [("mesh", object())])
 def test_unported_features_raise(field, value):
+    """A mesh that is not a ``ProcessGrid`` (a JAX mesh, multi-row-axis
+    grids) still raises; ``trace=True`` and ``connected_components`` are
+    ported and held to JAX in ``test_torch_obs.py`` and
+    ``test_torch_cc.py``."""
     rs = _sim()
     cfg = dataclasses.replace(PipelineConfig(device="cpu"), **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         assemble(rs.codes, rs.lengths, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcomp.connected_components(None)

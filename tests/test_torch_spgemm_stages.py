@@ -112,9 +112,12 @@ def test_plain_version_matches_jax(stages, kind, oracle):
 
 
 def test_dispatch_and_round_trips():
-    assert tb.dispatch("spgemm_ring_stages", "cuda") is tops.spgemm_ring_stages
-    assert tb.dispatch("spgemm_ring_stages", "reference") is \
-        K.spgemm_ring_stages_ref
+    # the registered implementation, wrapped once in its op span
+    for b, fn in (("cuda", tops.spgemm_ring_stages),
+                  ("reference", K.spgemm_ring_stages_ref)):
+        op = tb.dispatch("spgemm_ring_stages", b)
+        assert op is tb.dispatch("spgemm_ring_stages", b)
+        assert op.__wrapped__ is fn
     # the ring's stats name what ran: on CPU tensors the cuda backend runs
     # the plain version, one round trip per stage
     m = _panel(np.random.default_rng(3), "mpsr", N, KA, N, 5 * N)
