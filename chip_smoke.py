@@ -39,8 +39,13 @@ exit, no result line) on any check that does not hold:
 4. kernels — each kernel against its plain PyTorch version on the card, at
              the main path's own inputs, exact equality; CUDA-event times of
              both and the least time the card could take (``bound_ms``).
-             xdrop is held on both paths' launches: a 4096-pair chunk of the
-             gspmd run and the shard_map run's whole bucket (a variant).
+             xdrop is held on both paths' launches: the gspmd run's first
+             4096-pair chunk (both directions in one launch) and the
+             shard_map run's one launch (its live pairs, both directions; a
+             variant), with each launch's steps per pair.  The gspmd run
+             must launch xdrop once per ``align_chunk`` block that holds a
+             live pair, the shard_map run once, and the traced run must
+             hold one ``kernel_launch`` span per launch.
              spgemm is held on three inputs: the shard_map run's overlap
              launch, the four stage panels rank (0, 0) of a 4×4 grid holds
              (non-zero offsets) and the distributed TR's first launch;
@@ -148,6 +153,24 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def ptxas_summary(log: str):
+    """One line per kernel instance of an ``nvcc -Xptxas -v`` log: its
+    template arguments (if any), registers, shared memory and spills."""
+    import re
+
+    out, entry, spill = [], "", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            args = re.findall(r"ILi(\d+)E(?:Li(\d+)E)?", m.group(1))
+            entry = ("<" + ",".join(x for x in args[0] if x) + ">") if args else ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            out.append(f"{entry} {line.split(':', 1)[-1].strip()}; {spill}".strip())
+    return out
+
+
 def main() -> None:
     args = parse_args()
     try:
@@ -206,9 +229,8 @@ def main() -> None:
     paths = build_all(KERNEL_NAMES)
     print(f"[build] {len(paths)} kernels built in {time.perf_counter() - t0:.1f} s")
     for name in KERNEL_NAMES:
-        for line in BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+        for line in ptxas_summary(BUILD_LOG.get(name, "")):
+            print(f"[build] {name}: {line}")
     sys.stdout.flush()
 
     # --- 3. main ---
@@ -233,7 +255,7 @@ def main() -> None:
     originals = {"xdrop_extend": K.xdrop_extend_batch,
                  "consensus": K.pileup_vote,
                  "spgemm_ring_stages": K.spgemm_ring_stages}
-    for op, keep in (("xdrop_extend", 2), ("consensus", 1),
+    for op, keep in (("xdrop_extend", 1), ("consensus", 1),
                      ("spgemm_ring_stages", 1)):
         B.register_op(op, "cuda", capture(op, originals[op], keep))
 
@@ -262,6 +284,11 @@ def main() -> None:
           f"({st['hbm_source']}); launches {json.dumps(launches)}", flush=True)
     for name in GSPMD_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched on the main path")
+    # one x-drop launch (both directions) per align_chunk block of live pairs
+    live_chunks = -(-max(st["n_aligned"], 1) // cfg.align_chunk)
+    check(launches["xdrop"] == live_chunks,
+          f"{launches['xdrop']} xdrop launches for {st['n_aligned']} live pairs "
+          f"in {live_chunks} chunks of {cfg.align_chunk}")
     check(st["backend"] == "cuda", f"backend {st['backend']!r}")
     check(st["tr_backend"] == "cuda", f"tr_backend {st['tr_backend']!r}")
     check(st["n_passed"] > 0, "no alignment passed")
@@ -386,8 +413,8 @@ def main() -> None:
         print(f"[shard_map] warm-up on {small.n_reads} reads: "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         captured.pop("spgemm_ring_stages", None)
-        # the gspmd run's x-drop chunk is kept; this run's launches (the
-        # whole bucket, one per direction) are captured afresh
+        # the gspmd run's x-drop chunk is kept; this run's launch (the live
+        # pairs, both directions) is captured afresh
         cap_xdrop = captured.pop("xdrop_extend")
         K.reset_launch_counts()
         t0 = time.perf_counter()
@@ -422,11 +449,28 @@ def main() -> None:
         print(f"[shard_map] == gspmd: R, S, "
               f"{len([k for k in st if k not in skip and not k.startswith('exchange_')])}"
               f" stats keys, {len(a)} polished contigs", flush=True)
+        # the same run traced: one kernel_launch span per launch
+        tr_sm = assemble(reads.codes, reads.lengths,
+                         dataclasses.replace(sm_cfg, trace=True))
+        sm_spans = {k: 0 for k in SPAN_KERNEL.values()}
+        for sp in tr_sm.trace.find("kernel_launch"):
+            sm_spans[sp.attrs["kernel"]] += 1
+        check(ell_equal(res_sm.s_graph, tr_sm.s_graph)
+              and all(sm_spans[SPAN_KERNEL[k]] == v
+                      for k, v in sm_launches.items()),
+              f"shard_map traced: kernel_launch spans {sm_spans} vs launches "
+              f"{sm_launches}")
+        print(f"[shard_map] traced: S equal, kernel_launch spans {sm_spans}",
+              flush=True)
+        del tr_sm
         cap_overlap = captured.pop("spgemm_ring_stages")[0]
         cap_xdrop_sm = captured.pop("xdrop_extend")
-        check(len(cap_xdrop_sm) == sm_launches["xdrop"] == 2,
+        check(len(cap_xdrop_sm) == sm_launches["xdrop"] == 1,
               f"shard_map x-drop: {len(cap_xdrop_sm)} calls captured, "
               f"{sm_launches['xdrop']} launches")
+        check(cap_xdrop_sm[0][0][1].shape == (2, ss["n_aligned"]),
+              f"shard_map x-drop walks {tuple(cap_xdrop_sm[0][0][1].shape)} for "
+              f"{ss['n_aligned']} live pairs")
 
         # the distributed transitive reduction on phase 3's R, 1x1 grid
         grid = ProcessGrid.square()
@@ -491,42 +535,70 @@ def main() -> None:
         records.append(rec)
         print(f"[kernels] {json.dumps(rec)}", flush=True)
 
-    def xdrop_case(calls):
-        """Kernel and plain outputs of captured x-drop calls, the band
-        cells that exist and the bytes the function must move."""
-        got, want, cells, bytes_ = [], [], 0, 0
-        for a, kw in calls:
-            got += K.xdrop_extend_batch(*a, **kw)
-            out = K.xdrop_extend_batch_ref(*a, **kw, with_cells=True)
-            want += out[:3]
-            cells += int(out[3].sum(dtype=torch.int64))
-            e = a[0].shape[0]
-            bytes_ += a[0].numel() + a[4].numel() + 4 * 6 * e + 4 * 3 * e
-        print(f"[kernels] xdrop: {calls[0][0][0].shape[0]} pairs x "
-              f"{len(calls)} directions, {cells} band cells computed")
-        return got, want, cells, bytes_
+    def xdrop_case(label, call):
+        """Kernel and plain outputs of a captured x-drop call ((D, E)
+        walks), the band cells that exist, the bytes the function must move
+        and the steps per pair, printed per direction."""
+        a, kw = call
+        got = K.xdrop_extend_batch(*a, **kw)
+        *want, cells, steps = K.xdrop_extend_batch_ref(
+            *a, **kw, with_cells=True, with_steps=True)
+        walks = a[1].numel()  # pairs of the launch: directions x rows
+        bytes_ = a[0].numel() + a[4].numel() + 4 * 6 * walks + 4 * 3 * walks
+        stats = {"input": label, "pairs": walks,
+                 "cells": int(cells.sum(dtype=torch.int64))}
+        qs = torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64)
+        for d, name in enumerate(("forward", "backward")[:steps.shape[0]]):
+            x = steps[d].double().cpu()
+            p50, p90, p99 = (float(v) for v in torch.quantile(x, qs))
+            stats[f"steps_{name}"] = {"mean": float(x.mean()), "p50": p50,
+                                      "p90": p90, "p99": p99,
+                                      "max": int(x.max())}
+        x = steps.double().cpu().reshape(-1)
+        stats["steps_launch"] = {
+            "mean": float(x.mean()), "p99": float(torch.quantile(x, 0.99)),
+            "max": int(x.max())}
+        print(f"[kernels] xdrop {json.dumps(stats)}", flush=True)
+        return list(got), list(want), stats["cells"], bytes_, stats
 
-    # xdrop: the first 4096-pair chunk of the main run, both directions;
-    # only the cells of the right parity inside both sequences exist: ~8
-    # int32 operations each (two adds, a max of three, the x-drop test)
-    got, want, cells, bytes_ = xdrop_case(cap_xdrop)
-    record("xdrop", got, want,
-           lambda: [K.xdrop_extend_batch(*a, **kw) for a, kw in cap_xdrop],
-           lambda: [K.xdrop_extend_batch_ref(*a, **kw) for a, kw in cap_xdrop],
+    # xdrop: the first 4096-pair chunk of the main run, both directions in
+    # one launch; only the cells of the right parity inside both sequences
+    # exist: ~8 int32 operations each (two adds, a max of three, the x-drop
+    # test)
+    (cap_xdrop,) = cap_xdrop
+    (cap_xdrop_sm,) = cap_xdrop_sm
+    xa, xkw = cap_xdrop
+    got, want, cells, bytes_, x_stats = xdrop_case(
+        f"gspmd chunk 0, {xa[0].shape[0]} pairs x 2 directions", cap_xdrop)
+    record("xdrop", got, want, lambda: K.xdrop_extend_batch(*xa, **xkw),
+           lambda: K.xdrop_extend_batch_ref(*xa, **xkw),
            bytes_, 8 * cells, I32_OPS_S)
-    # the shard_map run's two launches: the whole bucket, one per direction
-    got, want, cells, bytes_ = xdrop_case(cap_xdrop_sm)
-    record("xdrop", got, want,
-           lambda: [K.xdrop_extend_batch(*a, **kw) for a, kw in cap_xdrop_sm],
-           lambda: [K.xdrop_extend_batch_ref(*a, **kw) for a, kw in cap_xdrop_sm],
+    rec_x = records[-1]
+    rec_x["steps"] = x_stats
+
+    # the same chunk as two single-direction launches (the launch count
+    # before both directions shared one)
+    def two_launches():
+        for d in range(2):
+            K.xdrop_extend_batch(xa[0], *(t[d] for t in xa[1:4]), xa[4],
+                                 *(t[d] for t in xa[5:8]), **xkw)
+    rec_x["ms_as_two_launches"] = time_ms(two_launches, 5)
+    # the shard_map run's one launch: its live pairs, both directions (the
+    # whole 65536-pair bucket before pad slots were skipped: another input)
+    sa, skw = cap_xdrop_sm
+    got, want, cells, bytes_, sm_stats = xdrop_case(
+        f"shard_map launch, {sa[0].shape[0]} live pairs x 2 directions",
+        cap_xdrop_sm)
+    record("xdrop", got, want, lambda: K.xdrop_extend_batch(*sa, **skw),
+           lambda: K.xdrop_extend_batch_ref(*sa, **skw),
            bytes_, 8 * cells, I32_OPS_S, n_launches=sm_launches["xdrop"])
     sm_rec = records.pop()
-    records[-1]["variants"] = [{
-        "input": f"shard_map bucket, {cap_xdrop_sm[0][0][0].shape[0]} pairs "
-                 "x 2 directions",
+    rec_x["variants"] = [{
+        "input": sm_stats["input"],
         **{k: sm_rec[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
-                                  "bound_ms", "bound_by")}}]
-    del cap_xdrop, cap_xdrop_sm, sm_rec
+                                  "bound_ms", "bound_by")},
+        "steps": sm_stats}]
+    del cap_xdrop, cap_xdrop_sm, sm_rec, xa, sa
 
     # minplus: the first TR iteration's dense operand (R after BuildR)
     dense = res.r_graph.to_dense(minplus_orient_semiring)[MP].contiguous()

@@ -3,9 +3,9 @@
 The PyTorch counterpart of ``repro.assembly.alignment``: every candidate
 pair is extended forward from the end of its shared k-mer seed and backward
 from its start by the banded x-drop wavefront (see
-``kernels/xdrop/ref.py``); ``batch_extend`` runs each direction as one
-batched ``xdrop_extend`` op on the selected backend and combines them into
-the alignment coordinates the overlap classifier consumes;
+``kernels/xdrop/ref.py``); ``batch_extend`` runs both directions as one
+batched ``xdrop_extend`` op call on the selected backend and combines them
+into the alignment coordinates the overlap classifier consumes;
 ``extend_pair`` is the single-pair form.
 """
 
@@ -80,18 +80,18 @@ def batch_extend(a_codes, a_len, b_codes_oriented, b_len, pa, pb, *, k,
                  backend: str = "reference", match: int = 1,
                  **kw) -> PairAlignment:
     """Batched seed-and-extend through the dispatch seam: the forward and
-    the backward extension each run as one batched ``xdrop_extend`` op."""
+    the backward extension run as one batched ``xdrop_extend`` op call,
+    with (2, E) walks over the same rows."""
     fn = dispatch("xdrop_extend", backend, a_codes.device)
     i32 = torch.int32
     pa, pb, a_len, b_len = (x.to(i32) for x in (pa, pb, a_len, b_len))
     step = torch.ones(pa.shape, dtype=i32, device=pa.device)
-    kw = dict(match=match, **kw)
-    a_codes = a_codes.contiguous()
-    b_codes_oriented = b_codes_oriented.contiguous()
-    fs, fa, fb = fn(a_codes, pa + k, step, a_len - pa - k, b_codes_oriented,
-                    pb + k, step, b_len - pb - k, **kw)
-    bs, ba, bb = fn(a_codes, pa - 1, -step, pa, b_codes_oriented, pb - 1,
-                    -step, pb, **kw)
+    steps = torch.stack([step, -step])
+    (fs, bs), (fa, ba), (fb, bb) = fn(
+        a_codes.contiguous(), torch.stack([pa + k, pa - 1]), steps,
+        torch.stack([a_len - pa - k, pa]), b_codes_oriented.contiguous(),
+        torch.stack([pb + k, pb - 1]), steps, torch.stack([b_len - pb - k, pb]),
+        match=match, **kw)
     return PairAlignment(
         score=k * match + fs + bs,
         bi=pa - ba,

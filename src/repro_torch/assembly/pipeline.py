@@ -44,7 +44,7 @@ from ..core.backend import resolve_backend, resolve_device, resolve_distribution
 from ..core.grid import resolve_grid
 from ..core.semiring import overlap_semiring
 from ..core.spgemm import spgemm
-from ..core.spmat import map_row_blocks, next_pow2
+from ..core.spmat import fill_pad_rows, map_row_blocks, next_pow2
 from ..core.summa import overlap_spgemm_shard_map
 from ..core.string_graph import (
     build_overlap_graph,
@@ -217,9 +217,11 @@ def _align_candidates(codes, lengths, c_mat, n, cfg, backend, device):
         res_b, align_stats = align_bucket_shard_map(
             codes, cand, k=cfg.k, mesh=cfg.mesh, backend=backend,
             xdrop=cfg.xdrop, match=cfg.match, mismatch=cfg.mismatch,
-            gap=cfg.gap, band=cfg.band, max_steps=cfg.max_steps)
+            gap=cfg.gap, band=cfg.band, max_steps=cfg.max_steps,
+            n_live=n_live)
     else:
-        res_b, align_stats = _align_local(codes, cand, bucket, cfg, backend), {}
+        res_b = _align_local(codes, cand, bucket, n_live, cfg, backend)
+        align_stats = {}
     slots = idx[live]
 
     def _scatter(x):
@@ -233,8 +235,12 @@ def _align_candidates(codes, lengths, c_mat, n, cfg, backend, device):
             align_stats)
 
 
-def _align_local(codes, cand, bucket, cfg, backend):
-    """The single-device x-drop of the bucket, in ``align_chunk`` blocks."""
+def _align_local(codes, cand, bucket, n_live, cfg, backend):
+    """The single-device x-drop of the bucket, in ``align_chunk`` blocks.
+
+    Only rows ``[0, max(n_live, 1))`` are extended (the last block's fill
+    rows have zero lengths and stop at step 0); the pad rows ``>= n_live``
+    are copies of row 0's inputs, so they take row 0's result."""
     def _align_block(blk):
         ai = codes[blk["i"].to(torch.int64)]
         bj = codes[blk["j"].to(torch.int64)]
@@ -248,9 +254,11 @@ def _align_local(codes, cand, bucket, cfg, backend):
         )
         return tuple(out), None
 
-    res_b, _ = map_row_blocks(_align_block, cand, n_rows=bucket,
+    n_rows = max(n_live, 1)
+    head = {key: x[:n_rows] for key, x in cand.items()}
+    res_b, _ = map_row_blocks(_align_block, head, n_rows=n_rows,
                               row_chunk=min(cfg.align_chunk, bucket))
-    return res_b
+    return tuple(fill_pad_rows(x, n_rows, bucket) for x in res_b)
 
 
 def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:

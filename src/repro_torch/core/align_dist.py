@@ -10,9 +10,10 @@ every exchanged word counted where it is issued:
 1. **gather_reads** — each rank starts from its ``n/P`` row shard of the
    read codes; a ring all-gather of ``P − 1`` ``ppermute`` hops
    (``(n/P) · L`` words each) replicates the full matrix.
-2. **extend** — the rank's ``bucket/P`` candidates gather their read rows,
+2. **extend** — the rank's ``bucket/P`` candidates below ``n_live`` (the
+   pad slots repeat pair 0 and are not extended) gather their read rows,
    orient strand-1 partners with ``revcomp`` and run
-   ``assembly.alignment.batch_extend`` (the ``xdrop_extend`` op).
+   ``assembly.alignment.batch_extend`` (one ``xdrop_extend`` op call).
 3. **scatter_scores** — the five ``PairAlignment`` int32 outputs stack into
    one ``(5, bucket)`` buffer; each rank writes only its own block and one
    ``psum`` replicates the result (``2 · (5 · bucket/P) · (P − 1)`` words
@@ -30,6 +31,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from .grid import ProcessGrid, resolve_grid
+from .spmat import fill_pad_rows
 from ..obs import span, validated
 
 #: arrays of a PairAlignment result (score, bi, ei, bj, ej)
@@ -67,7 +69,8 @@ def align_bucket_shard_map(codes, cand: Dict[str, Any], *, k: int,
                            mesh: Optional[ProcessGrid] = None,
                            backend: str = "reference", xdrop: int = 15,
                            match: int = 1, mismatch: int = -1, gap: int = -1,
-                           band: int = 33, max_steps: int = 512):
+                           band: int = 33, max_steps: int = 512,
+                           n_live: Optional[int] = None):
     """Run the compacted candidate bucket through the distributed x-drop
     extension (module docstring); returns ``(PairAlignment, stats)`` on
     every rank.
@@ -76,7 +79,14 @@ def align_bucket_shard_map(codes, cand: Dict[str, Any], *, k: int,
     compaction dict (keys ``i, j, li, lj, pa, pb, strand``, each (bucket,)
     int32); every rank holds both.  Reads pad to a multiple of P with zero
     rows and the bucket with zero pairs, whose results are sliced off.
-    ``mesh`` defaults to the P×1 grid (:meth:`ProcessGrid.rows`)."""
+    ``mesh`` defaults to the P×1 grid (:meth:`ProcessGrid.rows`).
+
+    ``n_live`` (default: the whole bucket) is the count of live pairs; the
+    pairs from ``n_live`` on are pad slots that repeat pair 0's inputs.
+    Each rank extends only its block's rows below ``max(n_live, 1)``, and
+    after the ``psum`` the pad columns take column 0's result.  The
+    exchanged buffer, and so the exchange counts, stay those of the whole
+    bucket."""
     from ..assembly import alignment as al  # core never imports assembly
     from ..assembly.kmers import revcomp  # at module load
 
@@ -86,6 +96,7 @@ def align_bucket_shard_map(codes, cand: Dict[str, Any], *, k: int,
     dev = codes.device
     n, row_width = codes.shape
     bucket = int(cand["i"].shape[0])
+    n_rows = bucket if n_live is None else max(min(int(n_live), bucket), 1)
     n_pad, bucket_pad = _pad_multiple(n, p), _pad_multiple(bucket, p)
     if n_pad != n:
         codes = torch.cat([codes, torch.zeros((n_pad - n, row_width),
@@ -101,6 +112,7 @@ def align_bucket_shard_map(codes, cand: Dict[str, Any], *, k: int,
         return x[lo:lo + blk]
 
     c = {key: local(cand[key]) for key in _CAND_KEYS}
+    n_ext = max(0, min(blk, n_rows - lo))  # rows of the block to extend
     acct = {"words": 0, "rounds": 0}
     with span("Alignment", kind="phase", phase="pair_exchange", p=p,
               bucket=bucket_pad) as sp:
@@ -110,26 +122,31 @@ def align_bucket_shard_map(codes, cand: Dict[str, Any], *, k: int,
                 acct)
 
         with span("Alignment", kind="phase", phase="extend"):
-            ai = codes_full[c["i"].to(torch.int64)]
-            bj = codes_full[c["j"].to(torch.int64)]
-            bj = torch.where((c["strand"] == 1)[:, None],
-                             revcomp(bj, c["lj"]), bj)
-            out = al.batch_extend(ai, c["li"], bj, c["lj"], c["pa"], c["pb"],
-                                  k=k, backend=backend, xdrop=xdrop,
-                                  match=match, mismatch=mismatch, gap=gap,
-                                  band=band, max_steps=max_steps)
+            if n_ext:
+                c = {key: x[:n_ext] for key, x in c.items()}
+                ai = codes_full[c["i"].to(torch.int64)]
+                bj = codes_full[c["j"].to(torch.int64)]
+                bj = torch.where((c["strand"] == 1)[:, None],
+                                 revcomp(bj, c["lj"]), bj)
+                out = al.batch_extend(ai, c["li"], bj, c["lj"], c["pa"],
+                                      c["pb"], k=k, backend=backend,
+                                      xdrop=xdrop, match=match,
+                                      mismatch=mismatch, gap=gap, band=band,
+                                      max_steps=max_steps)
 
         with span("Alignment", kind="phase", phase="scatter_scores"):
             buf = torch.zeros((ALIGN_OUTPUTS, bucket_pad), dtype=torch.int32,
                               device=dev)
-            buf[:, lo:lo + blk] = torch.stack(tuple(out)).to(torch.int32)
+            if n_ext:
+                buf[:, lo:lo + n_ext] = torch.stack(tuple(out)).to(torch.int32)
             if p > 1:
                 acct["words"] += 2 * (ALIGN_OUTPUTS * bucket_pad // p) * (p - 1)
                 acct["rounds"] += 1
             full = grid.psum(buf, "data")
         sp.set_output(full)
 
-    res = al.PairAlignment(*(full[t, :bucket] for t in range(ALIGN_OUTPUTS)))
+    res = al.PairAlignment(*(fill_pad_rows(full[t], n_rows, bucket)
+                             for t in range(ALIGN_OUTPUTS)))
     stats = validated({
         "exchange_words_align": acct["words"],
         "exchange_rounds_align": acct["rounds"],

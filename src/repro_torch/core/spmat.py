@@ -139,6 +139,16 @@ def map_row_blocks(fn: Callable, inputs: Any, *, n_rows: int, row_chunk: int,
     return _concat_rows(outs, n_rows), aux
 
 
+def fill_pad_rows(x: torch.Tensor, n_live: int, n_rows: int) -> torch.Tensor:
+    """``x``'s first ``n_live`` rows followed by ``n_rows − n_live`` copies
+    of row 0: the results of a bucket whose pad rows repeat row 0's inputs
+    (``n_live ≥ 1``)."""
+    x = x[:n_live]
+    if n_rows == n_live:
+        return x
+    return torch.cat([x, x[:1].expand((n_rows - n_live,) + tuple(x.shape[1:]))])
+
+
 def _pad_rows(x: torch.Tensor, pad: int, fill) -> torch.Tensor:
     if pad == 0:
         return x

@@ -4,25 +4,57 @@
 // (body _xdrop_kernel), which advanced a (pairs_per_block, band) wavefront
 // in VMEM for a fixed max_steps trip count.
 //
-// What bounds it on this card: neither bytes nor arithmetic peak.  Each
-// pair reads its two sequences once (a few KB) and each wavefront step is
-// about eight integer operations per band cell, but the steps of one pair
-// form a dependent chain: step s needs step s-1 (up/left) and s-2 (diag).
-// The kernel is latency bound, and the number of pairs in flight is what
-// hides that latency.
+// What bounds it on this card: neither bytes nor arithmetic peak.  A pair
+// reads its two sequences once (a few KB) and a wavefront cell costs about
+// eight integer operations, but the steps of one pair form a dependent
+// chain: step s needs step s-1 (up/left) and s-2 (diag), and the x-drop
+// test of step s needs the best score of step s-1.  A launch cannot end
+// before its longest pair's chain (thousands of steps), and with every
+// warp busy it is bound by the instructions issued: at band 65 about 58 a
+// warp-step (SASS of the <2, 0> instance), against 33 cells of useful work.
+// Registers (43-56 a thread, no spills) allow ~40 warps an SM; forcing
+// fewer registers for more warps spills and is slower.
 //
-// What the design does about it: one warp owns one pair, so a pair's whole
-// band (65 cells = 3 per lane) lives in registers and a step costs two warp
-// shuffles per register for the neighbours, one warp max/argmax and one
-// warp vote; 4096 pairs per launch give ~4096 warps, enough to fill the
-// 132 SMs.  A pair leaves its loop as soon as all its cells are retired or
-// s reaches min(max_steps, la + lb - 1), the oracle's own exit, so the
-// trip count follows the data and not max_steps.  Sequences are read from
-// global memory through base + step*t, so one kernel serves the forward
-// (+1) and backward (-1) extensions.  Index arithmetic uses floor division
-// by 2 and a parity test written for negative operands, as in JAX.
+// What the design does about it:
+// * Only the cells that exist are computed.  At step s, band cell d holds a
+//   score only when s + d - c is even (c = band / 2), so the cells of a step
+//   are d = 2q + p with p = (c + s) & 1, q = 0, 1, ...: band 65 gives 33 or
+//   32 cells a step instead of 65.  Lane l holds q = R*l .. R*l + R - 1 in
+//   registers.  diag is H[s-2] at the same q (same register); up and left
+//   are H[s-1] at q-1 and q (p = 0) or at q and q+1 (p = 1), so a step needs
+//   one warp shuffle, up or down by one lane, for the cell at the lane's
+//   edge.  Even and odd steps are unrolled in pairs with the parity a
+//   template argument, so H[s-2] is overwritten in place by H[s].
+// * One-instruction warp reductions: the step maximum by __reduce_max_sync
+//   (redux.sync); "alive" is that maximum above NEG, so no vote is needed.
+//   The position of the best cell costs no warp operation a step: each lane
+//   keeps its own record (its highest score, the first step it reached it,
+//   the lowest register there).  The pair's best score was first reached at
+//   the step where its last improvement happened, so at the end the lanes
+//   holding the best take the earliest step (__reduce_min_sync), and of
+//   those the lowest lane (a ballot and __ffs): the lowest q, i.e. the
+//   lowest band offset d, at the last improving step, as in the oracle.
+// * The bases are off the critical path: each warp keeps a 256-entry ring of
+//   each walk's bases in shared memory, stored twice (at t mod 256 and 256
+//   above), so a lane's R consecutive bases are read at immediate offsets
+//   from one masked address.  Every 64 steps each lane loads the next base
+//   of each walk into a register (coalesced, clamped to [0, L) as
+//   base + step*t always was) and stores it to the ring 64 steps later, so
+//   the load's latency is hidden behind the block of steps.
+// * max(diag + sub, up + gap, left + gap) is two __viaddmax_s32 (DPX), exact
+//   on int32.
+// * A pair stops when no cell is alive or at min(max_steps, la + lb - 1).
+// * D directions over the same rows run in one launch: pair w reads row
+//   w % rows of a and b.
+// * Longest first: warp k runs pair order[k], an order by min(la, lb)
+//   descending.  The work of a pair follows the shorter text, so the
+//   longest chains start in the first wave of warps and the launch does not
+//   wait on a long pair that started late.  The order is a counting sort by
+//   one block launched just before (order_kernel): ~0.013 ms for 8192
+//   pairs, where a torch argsort took ~0.09 ms.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
 #include <climits>
 
 namespace {
@@ -30,15 +62,161 @@ namespace {
 constexpr int NEG = -500000000;  // -(10**9) // 2
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 4;
-
-__device__ __forceinline__ int floor_div2(int x) { return (x - (x & 1)) / 2; }
+constexpr int RING = 256;       // bases of one walk held per warp
+constexpr int BLOCK_STEPS = 64;  // steps between two ring refills
+// the ring holds a at i in [B, B + HELD_A) and b at j in [J - HELD_B, J + 64)
+// at the start of each 64-step block (B = i of q = 0, J = s - B); a block
+// reads i < B + 32 + 128 and j in (J - 128, J + 32]
+constexpr int HELD_A = 192;
+constexpr int HELD_B = 128;
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// R = cells per lane; lane l holds band cells d = l + 32 r
-template <int R>
+struct Walk {
+  const uint8_t* row;
+  int ld, base, step;
+  __device__ __forceinline__ uint8_t at(int t) const {
+    return row[clampi(base + step * t, 0, ld - 1)];
+  }
+};
+
+// a ring holds base t at t & (RING - 1) and again RING above it
+__device__ __forceinline__ void ring_put(uint8_t* ring, int t, uint8_t v) {
+  ring[t & (RING - 1)] = v;
+  ring[(t & (RING - 1)) + RING] = v;
+}
+
+struct Pair {
+  const uint8_t* ra;  // ring of a's bases (2 * RING entries)
+  const uint8_t* rb;  // ring of b's bases (2 * RING entries)
+  int lane, c, la, lb, xdrop, match, mismatch, gap;
+  int best;                       // the pair's best score so far
+  int lane_best, lane_s, lane_r;  // this lane's record: score, step, register
+};
+
+constexpr int ORDER_BINS = 4096;
+constexpr int ORDER_THREADS = 1024;
+
+// the bin of a pair's work min(la, lb): one length a bin below 2048, then
+// 16 lengths a bin up to 2048 + 16 * 2047
+__device__ __forceinline__ int work_bin(int la, int lb) {
+  const int w = max(min(la, lb), 0);
+  return w < 2048 ? w : 2048 + min((w - 2048) >> 4, 2047);
+}
+
+// One block writes order = the pairs by work bin, descending: a counting
+// sort (histogram, scan, scatter in shared memory).  Pairs of one bin land
+// in no fixed order, which changes no result.
+__global__ void __launch_bounds__(ORDER_THREADS)
+order_kernel(const int* __restrict__ len_a, const int* __restrict__ len_b,
+             int pairs, int* __restrict__ order) {
+  constexpr int PER = ORDER_BINS / ORDER_THREADS;
+  __shared__ int start[ORDER_BINS];
+  __shared__ int warp_sum[ORDER_THREADS / 32];
+  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
+  for (int i = t; i < ORDER_BINS; i += ORDER_THREADS) start[i] = 0;
+  __syncthreads();
+  for (int p = t; p < pairs; p += ORDER_THREADS)
+    atomicAdd(&start[work_bin(len_a[p], len_b[p])], 1);
+  __syncthreads();
+  // exclusive scan over the bins from the highest down: thread t owns bins
+  // ORDER_BINS - 1 - (PER * t + u), u < PER
+  int cnt[PER], sum = 0;
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    cnt[u] = start[ORDER_BINS - 1 - (PER * t + u)];
+    sum += cnt[u];
+  }
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_sum[wid] = incl;
+  __syncthreads();
+  if (wid == 0) {
+    const int ws = warp_sum[lane];
+    int wi = ws;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, wi, o);
+      if (lane >= o) wi += y;
+    }
+    warp_sum[lane] = wi - ws;
+  }
+  __syncthreads();
+  int base = warp_sum[wid] + incl - sum;
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    start[ORDER_BINS - 1 - (PER * t + u)] = base;
+    base += cnt[u];
+  }
+  __syncthreads();
+  for (int p = t; p < pairs; p += ORDER_THREADS)
+    order[atomicAdd(&start[work_bin(len_a[p], len_b[p])], 1)] = p;
+}
+
+// i of cell q = 0 at step s: floor((s - c + 1) / 2)
+__device__ __forceinline__ int first_i(int s, int c) { return (s - c + 1) >> 1; }
+
+// One wavefront step of parity P: hd holds H[s-2] and becomes H[s]; hp is
+// H[s-1].  Returns false when no cell is alive (the pair stops).
+template <int R, int P>
+__device__ __forceinline__ bool step(int (&hd)[R], const int (&hp)[R], int s,
+                                     int qn, Pair& p) {
+  int edge;
+  if (P == 0) {  // up = H[s-1][q-1]: lane l-1's last cell
+    edge = __shfl_up_sync(FULL, hp[R - 1], 1);
+    if (p.lane == 0) edge = NEG;
+  } else {  // left = H[s-1][q+1]: lane l+1's first cell
+    edge = __shfl_down_sync(FULL, hp[0], 1);
+    if (p.lane == 31) edge = NEG;
+  }
+  const int i0 = first_i(s, p.c);
+  // the existing cells inside both sequences: qlo <= q < qhi
+  const int qlo = max(max(0, -i0), s - i0 - p.lb + 1);
+  const int qhi = min(min(qn, p.la - i0), s - i0 + 1);
+  const unsigned span = max(qhi - qlo, 0);  // q - qlo < span, unsigned
+  const int thr = p.best - p.xdrop;
+  const int ia = i0 + R * p.lane;  // i of the lane's first cell
+  const int jb = s - ia;           // and its j
+  const uint8_t* ca = p.ra + (ia & (RING - 1));         // ca[r]: a at ia + r
+  const uint8_t* cb = p.rb + (jb & (RING - 1)) + RING;  // cb[-r]: b at jb - r
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int up = P == 0 ? (r == 0 ? edge : hp[r > 0 ? r - 1 : 0]) : hp[r];
+    const int left =
+        P == 0 ? hp[r] : (r == R - 1 ? edge : hp[r + 1 < R ? r + 1 : r]);
+    const int q = R * p.lane + r;
+    const int sub = ca[r] == cb[-r] ? p.match : p.mismatch;
+    const int h = __viaddmax_s32(hd[r], sub,
+                                 __viaddmax_s32(up, p.gap, left + p.gap));
+    hd[r] = ((unsigned)(q - qlo) < span && h >= thr) ? h : NEG;
+  }
+  int lmax = hd[0];
+#pragma unroll
+  for (int r = 1; r < R; ++r) lmax = max(lmax, hd[r]);
+  const int m = __reduce_max_sync(FULL, lmax);
+  if (m <= NEG) return false;
+  p.best = max(p.best, m);
+  if (lmax > p.lane_best) {  // the lane's first step at a new high
+    int fr = R - 1;
+#pragma unroll
+    for (int r = R - 2; r >= 0; --r)
+      if (hd[r] == lmax) fr = r;
+    p.lane_best = lmax;
+    p.lane_s = s;
+    p.lane_r = fr;
+  }
+  return true;
+}
+
+// R = registers per lane (cells q = R*lane + r); P0 = c & 1, the parity of
+// the even steps
+template <int R, int P0>
 __global__ void __launch_bounds__(32 * WARPS)
 xdrop_kernel(const uint8_t* __restrict__ a, int lda,
              const int* __restrict__ base_a, const int* __restrict__ step_a,
@@ -46,104 +224,93 @@ xdrop_kernel(const uint8_t* __restrict__ a, int lda,
              const uint8_t* __restrict__ b, int ldb,
              const int* __restrict__ base_b, const int* __restrict__ step_b,
              const int* __restrict__ len_b,
-             int e, int band, int max_steps, int xdrop, int match,
-             int mismatch, int gap,
+             const int* __restrict__ order, int rows, int pairs, int band,
+             int max_steps, int xdrop, int match, int mismatch, int gap,
              int* __restrict__ score, int* __restrict__ ai_out,
              int* __restrict__ bj_out) {
+  __shared__ uint8_t ring_a[WARPS][2 * RING];
+  __shared__ uint8_t ring_b[WARPS][2 * RING];
   const int lane = threadIdx.x & 31;
-  const int pair = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (pair >= e) return;  // uniform across the warp
-  const uint8_t* arow = a + (size_t)pair * lda;
-  const uint8_t* brow = b + (size_t)pair * ldb;
-  const int ba = base_a[pair], sa = step_a[pair], la = len_a[pair];
-  const int bb = base_b[pair], sb = step_b[pair], lb = len_b[pair];
-  const int c = band / 2;
-  const int limit = min(max_steps, la + lb - 1);
+  const int w = threadIdx.x >> 5;
+  const int k = blockIdx.x * WARPS + w;
+  if (k >= pairs) return;  // uniform across the warp
+  const int pair = order[k];
+  const int row = pair % rows;
+  const Walk wa{a + (size_t)row * lda, lda, base_a[pair], step_a[pair]};
+  const Walk wb{b + (size_t)row * ldb, ldb, base_b[pair], step_b[pair]};
+  uint8_t* ra = ring_a[w];
+  uint8_t* rb = ring_b[w];
+  Pair p{ra, rb, lane, band >> 1, len_a[pair], len_b[pair], xdrop, match,
+         mismatch, gap, 0, 0, 0, 0};
+  const int limit = min(max_steps, p.la + p.lb - 1);
+  // cells of each parity: d = 2q + parity < band
+  const int qn_even = (band - P0 + 1) >> 1;
+  const int qn_odd = (band - (1 - P0) + 1) >> 1;
 
-  int h1[R], h2[R];
+  if (limit > 0) {
+    {
+      const int b0 = first_i(0, p.c), j0 = -b0;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    h1[r] = NEG;
-    h2[r] = (lane + 32 * r == c) ? 0 : NEG;  // virtual origin at s - 2
+      for (int u = 0; u < HELD_A / 32; ++u) {
+        const int t = b0 + lane + 32 * u;
+        ring_put(ra, t, wa.at(t));
+      }
+#pragma unroll
+      for (int u = 0; u < (HELD_B + 64) / 32; ++u) {
+        const int t = j0 - HELD_B + lane + 32 * u;
+        ring_put(rb, t, wb.at(t));
+      }
+      __syncwarp();
+    }
+    int hx[R], hy[R];  // H[s-2] and H[s-1] at the even steps s
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      hx[r] = (R * lane + r == (p.c >> 1)) ? 0 : NEG;  // virtual origin
+      hy[r] = NEG;
+    }
+    int s = 0;
+    bool go = true;
+    while (go) {
+      // the bases the next block needs first, fetched ahead
+      const int i0 = first_i(s, p.c);
+      const int ta = i0 + HELD_A + lane, tb = s - i0 + 64 + lane;
+      const uint8_t na = wa.at(ta), nb = wb.at(tb);
+      const int s_end = min(s + BLOCK_STEPS, limit);
+      for (; s < s_end; s += 2) {
+        if (!step<R, P0>(hx, hy, s, qn_even, p) || s + 1 >= s_end) {
+          go = false;  // dead, or an odd limit reached
+          break;
+        }
+        if (!step<R, 1 - P0>(hy, hx, s + 1, qn_odd, p)) {
+          go = false;
+          break;
+        }
+      }
+      if (s >= limit) go = false;
+      if (go) {
+        ring_put(ra, ta, na);
+        ring_put(rb, tb, nb);
+        __syncwarp();
+      }
+    }
   }
-  int best = 0, bi = 0, bj = 0;
-  bool alive = true;
-  for (int s = 0; alive && s < limit; ++s) {
-    int y[R], z[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      y[r] = __shfl_sync(FULL, h1[r], (lane + 31) & 31);  // lane - 1
-      z[r] = __shfl_sync(FULL, h1[r], (lane + 1) & 31);   // lane + 1
-    }
-    int h[R];
-    int lbest = INT_MIN, ld = 0;
-    bool any_alive = false;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      // up = H[s-1][d-1], left = H[s-1][d+1]; lane 0 / lane 31 take the
-      // neighbouring register's value from the far lane
-      const int up = lane > 0 ? y[r] : (r > 0 ? y[r > 0 ? r - 1 : 0] : NEG);
-      const int left =
-          lane < 31 ? z[r] : (r + 1 < R ? z[r + 1 < R ? r + 1 : r] : NEG);
-      const int d = lane + 32 * r;
-      const int off = d - c;
-      const int i = floor_div2(s + off);
-      const int j = floor_div2(s - off);
-      int hv = NEG;
-      if (d < band && ((s + off) & 1) == 0 && i >= 0 && j >= 0 && i < la &&
-          j < lb) {
-        const int ia = clampi(ba + sa * i, 0, lda - 1);
-        const int jb = clampi(bb + sb * j, 0, ldb - 1);
-        const int sub = arow[ia] == brow[jb] ? match : mismatch;
-        hv = max(h2[r] + sub, max(up + gap, left + gap));
-        if (hv < best - xdrop) hv = NEG;  // x-drop retirement
-      }
-      h[r] = hv;
-      if (hv > lbest) {  // r ascending: the lowest d wins ties in a lane
-        lbest = hv;
-        ld = d;
-      }
-      any_alive |= hv > NEG;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {  // warp max, ties to the lowest d
-      const int ov = __shfl_xor_sync(FULL, lbest, o);
-      const int od = __shfl_xor_sync(FULL, ld, o);
-      if (ov > lbest || (ov == lbest && od < ld)) {
-        lbest = ov;
-        ld = od;
-      }
-    }
-    if (lbest > best) {
-      best = lbest;
-      const int off = ld - c;
-      bi = floor_div2(s + off) + 1;
-      bj = floor_div2(s - off) + 1;
-    }
-    alive = __any_sync(FULL, any_alive);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      h2[r] = h1[r];
-      h1[r] = h[r];
-    }
+  // the best cell: the earliest step at which a lane reached the best
+  // score, then the lowest lane, then (the lane's record) the lowest register
+  int bi = 0, bj = 0;
+  if (p.best > 0) {  // warp-uniform
+    const int key = p.lane_best == p.best ? p.lane_s : INT_MAX;
+    const int s_best = __reduce_min_sync(FULL, key);
+    const int wl = __ffs(__ballot_sync(FULL, key == s_best)) - 1;
+    const int i = first_i(s_best, p.c) + R * wl +
+                  __shfl_sync(FULL, p.lane_r, wl);
+    bi = i + 1;
+    bj = s_best - i + 1;
   }
   if (lane == 0) {
-    score[pair] = best;
+    score[pair] = p.best;
     ai_out[pair] = bi;
     bj_out[pair] = bj;
   }
-}
-
-template <int R>
-void launch_r(dim3 grid, dim3 block, cudaStream_t st, const uint8_t* a,
-              int lda, const int* base_a, const int* step_a, const int* len_a,
-              const uint8_t* b, int ldb, const int* base_b, const int* step_b,
-              const int* len_b, int e, int band, int max_steps, int xdrop,
-              int match, int mismatch, int gap, int* score, int* ai,
-              int* bj) {
-  xdrop_kernel<R><<<grid, block, 0, st>>>(
-      a, lda, base_a, step_a, len_a, b, ldb, base_b, step_b, len_b, e, band,
-      max_steps, xdrop, match, mismatch, gap, score, ai, bj);
 }
 
 }  // namespace
@@ -151,31 +318,38 @@ void launch_r(dim3 grid, dim3 block, cudaStream_t st, const uint8_t* a,
 extern "C" int xdrop_launch(const void* a, int lda, const void* base_a,
                             const void* step_a, const void* len_a,
                             const void* b, int ldb, const void* base_b,
-                            const void* step_b, const void* len_b, int e,
-                            int band, int max_steps, int xdrop, int match,
-                            int mismatch, int gap, void* score, void* ai,
-                            void* bj, void* stream) {
-  if (e <= 0) return 0;
-  const int r = (band + 31) / 32;
-  dim3 grid((e + WARPS - 1) / WARPS), block(32 * WARPS);
+                            const void* step_b, const void* len_b,
+                            void* order, int rows, int pairs, int band,
+                            int max_steps, int xdrop,
+                            int match, int mismatch, int gap, void* score,
+                            void* ai, void* bj, void* stream) {
+  if (pairs <= 0) return 0;
+  if (rows <= 0 || lda <= 0 || ldb <= 0 || band < 1 || band > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int r = ((band + 1) / 2 + 31) / 32;  // cells of the larger parity
+  const int p0 = (band / 2) & 1;
+  dim3 grid((pairs + WARPS - 1) / WARPS), block(32 * WARPS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define XDROP_CASE(R)                                                         \
-  case R:                                                                     \
-    launch_r<R>(grid, block, st, (const uint8_t*)a, lda, (const int*)base_a,  \
-                (const int*)step_a, (const int*)len_a, (const uint8_t*)b,     \
-                ldb, (const int*)base_b, (const int*)step_b,                  \
-                (const int*)len_b, e, band, max_steps, xdrop, match,          \
-                mismatch, gap, (int*)score, (int*)ai, (int*)bj);              \
+  order_kernel<<<1, ORDER_THREADS, 0, st>>>(
+      (const int*)len_a, (const int*)len_b, pairs, (int*)order);
+#define XDROP_CASE(R, P0)                                                    \
+  case 2 * R + P0:                                                           \
+    xdrop_kernel<R, P0><<<grid, block, 0, st>>>(                             \
+        (const uint8_t*)a, lda, (const int*)base_a, (const int*)step_a,      \
+        (const int*)len_a, (const uint8_t*)b, ldb, (const int*)base_b,       \
+        (const int*)step_b, (const int*)len_b, (const int*)order, rows,      \
+        pairs, band, max_steps, xdrop, match, mismatch, gap, (int*)score,    \
+        (int*)ai, (int*)bj);                                                 \
     break;
-  switch (r) {
-    XDROP_CASE(1)
-    XDROP_CASE(2)
-    XDROP_CASE(3)
-    XDROP_CASE(4)
-    XDROP_CASE(5)
-    XDROP_CASE(6)
-    XDROP_CASE(7)
-    XDROP_CASE(8)
+  switch (2 * r + p0) {
+    XDROP_CASE(1, 0)
+    XDROP_CASE(1, 1)
+    XDROP_CASE(2, 0)
+    XDROP_CASE(2, 1)
+    XDROP_CASE(3, 0)
+    XDROP_CASE(3, 1)
+    XDROP_CASE(4, 0)
+    XDROP_CASE(4, 1)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

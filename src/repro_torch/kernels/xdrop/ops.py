@@ -3,7 +3,9 @@
 ``xdrop_extend_batch`` launches the CUDA kernel for CUDA tensors and runs
 the plain version (``ref.py``) for CPU tensors; a CUDA request it cannot
 launch raises.  Both backends of the ``xdrop_extend`` op share one
-signature.
+signature: the walks (bases, steps, lengths) are ``(E,)`` for one
+direction or ``(D, E)`` for ``D`` directions over the same rows of ``a``
+and ``b``, which one launch runs as ``D · E`` pairs.
 """
 
 from __future__ import annotations
@@ -15,24 +17,25 @@ import torch
 from ...core.backend import register_op
 from ...obs.trace import span
 from ..build import CudaKernel, check_cuda, check_dtype, stream_handle
-from .ref import xdrop_extend_batch_ref
+from .ref import check_walk_shapes, xdrop_extend_batch_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("xdrop", [
     _P, _I, _P, _P, _P,  # a, lda, base_a, step_a, len_a
     _P, _I, _P, _P, _P,  # b, ldb, base_b, step_b, len_b
-    _I, _I, _I, _I, _I, _I, _I,  # e, band, max_steps, xdrop, match, mismatch, gap
+    _P, _I, _I,  # order (scratch, written by the launch), rows, pairs
+    _I, _I, _I, _I, _I, _I,  # band, max_steps, xdrop, match, mismatch, gap
     _P, _P, _P, _P,  # score, ai, bj, stream
 ])
-MAX_BAND = 256  # 8 cells per lane
+MAX_BAND = 256  # 128 cells of one parity: 4 per lane
 
 
 def xdrop_extend_batch(a, base_a, step_a, len_a, b, base_b, step_b, len_b, *,
                        xdrop: int = 15, match: int = 1, mismatch: int = -1,
                        gap: int = -1, band: int = 33, max_steps: int = 256):
-    """Batched single-direction x-drop extension: ``a`` (E, LA) and ``b``
-    (E, LB) uint8, bases/steps/lengths (E,) int32 → (score, ai, bj) (E,)
-    int32."""
+    """Batched x-drop extension: ``a`` (E, LA) and ``b`` (E, LB) uint8, the
+    bases/steps/lengths (E,) or (D, E) int32 → (score, ai, bj) int32 of the
+    walks' shape."""
     args = dict(a=a, base_a=base_a, step_a=step_a, len_a=len_a, b=b,
                 base_b=base_b, step_b=step_b, len_b=len_b)
     if all(t.device.type == "cpu" for t in args.values()):
@@ -42,28 +45,27 @@ def xdrop_extend_batch(a, base_a, step_a, len_a, b, base_b, step_b, len_b, *,
             max_steps=max_steps,
         )
     dev = check_cuda("xdrop", **args)
-    e = a.shape[0]
+    shape = check_walk_shapes(a, b, args)
     for key in ("a", "b"):
         check_dtype("xdrop", args[key], torch.uint8, key)
-        if args[key].dim() != 2 or args[key].shape[0] != e:
-            raise ValueError(f"xdrop: {key} must be (E, L), got {tuple(args[key].shape)}")
     for key in ("base_a", "step_a", "len_a", "base_b", "step_b", "len_b"):
         check_dtype("xdrop", args[key], torch.int32, key)
-        if tuple(args[key].shape) != (e,):
-            raise ValueError(f"xdrop: {key} must be ({e},), got {tuple(args[key].shape)}")
     if not 1 <= band <= MAX_BAND:
         raise ValueError(f"xdrop: band must be in [1, {MAX_BAND}], got {band}")
-    score, ai, bj = (torch.empty(e, dtype=torch.int32, device=dev)
+    score, ai, bj = (torch.empty(shape, dtype=torch.int32, device=dev)
                      for _ in range(3))
-    if e == 0:
+    pairs = score.numel()
+    if pairs == 0:
         return score, ai, bj
-    with span("kernel_launch", kind="kernel", kernel="xdrop_extend", pairs=e):
+    order = torch.empty(pairs, dtype=torch.int32, device=dev)  # scratch
+    with span("kernel_launch", kind="kernel", kernel="xdrop_extend",
+              pairs=pairs):
         KERNEL.launch(
             a.data_ptr(), a.shape[1], base_a.data_ptr(), step_a.data_ptr(),
             len_a.data_ptr(), b.data_ptr(), b.shape[1], base_b.data_ptr(),
-            step_b.data_ptr(), len_b.data_ptr(), e, band, max_steps, xdrop,
-            match, mismatch, gap, score.data_ptr(), ai.data_ptr(),
-            bj.data_ptr(), stream_handle(a),
+            step_b.data_ptr(), len_b.data_ptr(), order.data_ptr(), a.shape[0],
+            pairs, band, max_steps, xdrop, match, mismatch, gap,
+            score.data_ptr(), ai.data_ptr(), bj.data_ptr(), stream_handle(a),
         )
     return score, ai, bj
 

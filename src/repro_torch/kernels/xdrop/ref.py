@@ -9,6 +9,10 @@ below ``best − xdrop`` retire to ``NEG``.  A pair stops once no cell is
 alive or at ``min(max_steps, len_a + len_b − 1)`` steps; the batch loop
 runs until every pair has stopped.  Ties of the best cell go to the first
 lane (``torch.argmax`` returns the first maximum).
+
+The bases, steps and lengths are ``(E,)`` (one direction) or ``(D, E)``:
+``D`` directions over the same ``E`` rows of ``a`` and ``b``, each run as
+its own pair, with ``(D, E)`` outputs.
 """
 
 from __future__ import annotations
@@ -17,27 +21,56 @@ import torch
 
 NEG = -(10**9) // 2
 
+_WALK_KEYS = ("base_a", "step_a", "len_a", "base_b", "step_b", "len_b")
 
-def _fetch(seq, base, step, t, limit):
-    """seq[p, base[p] + step[p]·t] with validity 0 ≤ t < limit[p]."""
+
+def check_walk_shapes(a, b, walks) -> tuple:
+    """The common shape of the six walk tensors (``walks``, by name), which
+    must be ``(E,)`` or ``(D, E)`` with ``E`` the rows of ``a`` and ``b``;
+    raises ``ValueError`` otherwise."""
+    e = a.shape[0]
+    for key, x in (("a", a), ("b", b)):
+        if x.dim() != 2 or x.shape[0] != e:
+            raise ValueError(f"xdrop: {key} must be (E, L) with E = {e}, "
+                             f"got {tuple(x.shape)}")
+    shape = tuple(walks["base_a"].shape)
+    if not (shape == (e,) or (len(shape) == 2 and shape[1] == e)):
+        raise ValueError(f"xdrop: base_a must be ({e},) or (D, {e}), got {shape}")
+    for key in _WALK_KEYS:
+        if tuple(walks[key].shape) != shape:
+            raise ValueError(f"xdrop: {key} must be {shape} like base_a, got "
+                             f"{tuple(walks[key].shape)}")
+    return shape
+
+
+def _fetch(seq, rows, base, step, t, limit):
+    """seq[rows[p], base[p] + step[p]·t] with validity 0 ≤ t < limit[p]."""
     idx = base[:, None] + step[:, None] * t[None, :]
-    safe = torch.clamp(idx, 0, seq.shape[1] - 1).to(torch.int64)
-    return torch.gather(seq, 1, safe), (t[None, :] >= 0) & (t[None, :] < limit[:, None])
+    width = seq.shape[1]
+    safe = torch.clamp(idx, 0, width - 1).to(torch.int64)
+    flat = rows[:, None] * width + safe
+    return (torch.take(seq, flat),
+            (t[None, :] >= 0) & (t[None, :] < limit[:, None]))
 
 
 def xdrop_extend_batch_ref(a, base_a, step_a, len_a, b, base_b, step_b, len_b,
                            *, xdrop=15, match=1, mismatch=-1, gap=-1, band=33,
-                           max_steps=256, with_cells=False):
-    """Batched single-direction x-drop extension: ``a`` (E, LA) and ``b``
-    (E, LB) uint8, the rest (E,) int32 → (score, ai, bj) (E,) int32.
+                           max_steps=256, with_cells=False, with_steps=False):
+    """Batched x-drop extension: ``a`` (E, LA) and ``b`` (E, LB) uint8, the
+    walks (E,) or (D, E) int32 → (score, ai, bj) of the walks' shape, int32.
     ``with_cells=True`` also returns, per pair, the band cells that exist
     on the steps it ran (right parity, inside both sequences): the cells
-    whose score the kernel computes."""
-    e = a.shape[0]
+    whose score the kernel computes.  ``with_steps=True`` also returns the
+    steps each pair ran (its share of the launch's dependent chain)."""
+    shape = check_walk_shapes(a, b, dict(
+        base_a=base_a, step_a=step_a, len_a=len_a, base_b=base_b,
+        step_b=step_b, len_b=len_b))
     dev = a.device
     i32 = torch.int32
-    ba, sa, la = (x.to(i32) for x in (base_a, step_a, len_a))
-    bb, sb, lb = (x.to(i32) for x in (base_b, step_b, len_b))
+    ba, sa, la = (x.to(i32).reshape(-1) for x in (base_a, step_a, len_a))
+    bb, sb, lb = (x.to(i32).reshape(-1) for x in (base_b, step_b, len_b))
+    e = ba.shape[0]
+    rows = torch.arange(e, device=dev) % a.shape[0]
     c = band // 2
     offs = torch.arange(band, dtype=i32, device=dev) - c
     limit = torch.clamp(la + lb - 1, max=max_steps)
@@ -52,6 +85,7 @@ def xdrop_extend_batch_ref(a, base_a, step_a, len_a, b, base_b, step_b, len_b,
     bj = torch.zeros(e, dtype=i32, device=dev)
     alive = torch.ones(e, dtype=torch.bool, device=dev)
     cells = torch.zeros(e, dtype=i32, device=dev)
+    steps = torch.zeros(e, dtype=i32, device=dev)
     s = 0
     while True:
         active = alive & (s < limit)
@@ -60,8 +94,8 @@ def xdrop_extend_batch_ref(a, base_a, step_a, len_a, b, base_b, step_b, len_b,
         i = torch.div(s + offs, 2, rounding_mode="floor")
         j = torch.div(s - offs, 2, rounding_mode="floor")
         parity = torch.remainder(s + offs, 2) == 0
-        av, va = _fetch(a, ba, sa, i, la)
-        bv, vb = _fetch(b, bb, sb, j, lb)
+        av, va = _fetch(a, rows, ba, sa, i, la)
+        bv, vb = _fetch(b, rows, bb, sb, j, lb)
         valid = parity[None, :] & va & vb & (i >= 0)[None, :] & (j >= 0)[None, :]
         sub = torch.where(av == bv, m_t, mm_t)
         diag = h2 + sub
@@ -82,7 +116,11 @@ def xdrop_extend_batch_ref(a, base_a, step_a, len_a, b, base_b, step_b, len_b,
         alive = torch.where(active, torch.any(h > NEG, dim=1), alive)
         if with_cells:
             cells = cells + (valid & act).sum(dim=1, dtype=i32)
+        steps = steps + active.to(i32)
         s += 1
+    out = [best, bi, bj]
     if with_cells:
-        return best, bi, bj, cells
-    return best, bi, bj
+        out.append(cells)
+    if with_steps:
+        out.append(steps)
+    return tuple(x.reshape(shape) for x in out)

@@ -106,3 +106,91 @@ def test_align_bucket_single_rank_matches_jax(case):
     for got, w in zip(res, want):
         np.testing.assert_array_equal(got.numpy(), w)
     assert stats == {"exchange_words_align": 0, "exchange_rounds_align": 0}
+
+
+# --- n_live: pad slots are not extended ---------------------------------------
+
+
+def _padded_bucket(n_live, bucket=40):
+    """The pipeline's bucket: live pairs first, then pad slots that repeat
+    pair 0 (the compaction's index 0)."""
+    codes, cand = _bucket(seed=3, bucket=bucket)
+    for v in cand.values():
+        v[max(n_live, 1):] = v[0]
+    return codes, cand
+
+
+def _cfg(align_chunk):
+    from repro_torch.assembly.pipeline import PipelineConfig
+
+    return PipelineConfig(k=K, xdrop=KW["xdrop"], band=KW["band"],
+                          max_steps=KW["max_steps"], align_chunk=align_chunk,
+                          device="cpu")
+
+
+@pytest.mark.parametrize("n_live", [0, 1, 23, 40])
+def test_align_local_skips_pad_slots_and_matches_jax(n_live):
+    """``_align_local`` extends rows ``[0, max(n_live, 1))`` in
+    ``align_chunk`` blocks, one op call a block, and fills the pad rows
+    from row 0: every row, pad slots included, equals JAX's whole-bucket
+    ``batch_extend``."""
+    from repro_torch.assembly.pipeline import _align_local
+    from repro_torch.core.backend import register_op
+    from repro_torch.kernels import xdrop_extend_batch
+
+    codes, cand = _padded_bucket(n_live)
+    want = _jax_reference(codes, cand)
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(tuple(args[1].shape))
+        return xdrop_extend_batch(*args, **kw)
+
+    register_op("xdrop_extend", "cuda", spy)
+    try:
+        got = _align_local(torch.from_numpy(codes),
+                           {k: torch.from_numpy(v) for k, v in cand.items()},
+                           40, n_live, _cfg(16), "cuda")
+    finally:
+        register_op("xdrop_extend", "cuda", xdrop_extend_batch)
+    assert calls == [(2, 16)] * -(-max(n_live, 1) // 16)
+    for g, w in zip(got, want):
+        assert g.shape == (40,)
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("n_live", [0, 9, 40])
+def test_align_bucket_n_live_single_rank(n_live):
+    codes, cand = _padded_bucket(n_live)
+    want = _jax_reference(codes, cand)
+    res, stats = align_bucket_shard_map(
+        torch.from_numpy(codes),
+        {k: torch.from_numpy(v) for k, v in cand.items()}, k=K, n_live=n_live,
+        **KW)
+    for got, w in zip(res, want):
+        np.testing.assert_array_equal(got.numpy(), w)
+    assert stats == {"exchange_words_align": 0, "exchange_rounds_align": 0}
+
+
+@pytest.mark.dist
+def test_align_bucket_n_live_on_four_ranks(tmp_path):
+    """n_live = 23 of a 37-pair bucket on 4 ranks (blocks of 10): ranks 0-2
+    extend 10, 10 and 3 rows, rank 3 none; every rank's result equals JAX
+    and the local path, and the exchange words stay the whole bucket's."""
+    from repro_torch.assembly.pipeline import _align_local
+
+    codes, cand = _padded_bucket(23, bucket=37)
+    want = _jax_reference(codes, cand)
+    local = _align_local(torch.from_numpy(codes),
+                         {k: torch.from_numpy(v) for k, v in cand.items()},
+                         37, 23, _cfg(4096), "reference")
+    outs = run_ranks(4, "job_align", {"codes": codes, "cand": cand, "k": K,
+                                      "kw": {**KW, "n_live": 23}}, tmp_path)
+    model = words_align(n_pad=24, row_width=codes.shape[1], bucket_pad=40,
+                        p=4)
+    for out in outs:
+        for got, w, loc in zip(out["res"], want, local):
+            np.testing.assert_array_equal(got, w)
+            np.testing.assert_array_equal(got, loc.numpy())
+        assert out["stats"]["exchange_words_align"] == model
+        assert out["stats"]["exchange_rounds_align"] == 4

@@ -152,3 +152,118 @@ def test_batch_extend_and_string_graph_match_jax(seed):
     assert tsp.ell_equal(
         ell_from_numpy(np.asarray(jd.cols), np.asarray(jd.vals), jd.n_cols), td)
     assert tsg.edge_list(td) == jsg.edge_list(jd)
+
+
+# --- (D, E) walks: both directions in one op call -----------------------------
+
+
+def _two_direction_walks(rng, e, la, lb):
+    """Forward walks from 0 and backward walks from a random base over the
+    same rows, stacked (2, E); numpy."""
+    lens_a = rng.integers(la // 2, la + 1, e).astype(np.int32)
+    lens_b = rng.integers(lb // 2, lb + 1, e).astype(np.int32)
+    back_a = rng.integers(0, la, e).astype(np.int32)
+    back_b = rng.integers(0, lb, e).astype(np.int32)
+    one = np.ones(e, np.int32)
+    return (np.stack([np.zeros(e, np.int32), back_a]), np.stack([one, -one]),
+            np.stack([lens_a, back_a + 1]),
+            np.stack([np.zeros(e, np.int32), back_b]), np.stack([one, -one]),
+            np.stack([lens_b, back_b + 1]))
+
+
+@pytest.mark.parametrize("e,la,lb,band", [(7, 60, 50, 1), (11, 90, 80, 16),
+                                          (9, 120, 100, 65)])
+def test_xdrop_two_directions_match_single_calls_and_pallas(e, la, lb, band):
+    rng = np.random.default_rng(e + band)
+    a, b = _pairs(rng, e, la, lb, 0.08)
+    ba, sa, lna, bb, sb, lnb = _two_direction_walks(rng, e, la, lb)
+    kw = dict(band=band, max_steps=la + lb, xdrop=18)
+    t = torch.from_numpy
+    both = xdrop_extend_batch(t(a), t(ba), t(sa), t(lna), t(b), t(bb), t(sb),
+                              t(lnb), **kw)
+    assert all(x.shape == (2, e) for x in both)
+    for d in range(2):
+        walks = [x[d] for x in (ba, sa, lna, bb, sb, lnb)]
+        one = xdrop_extend_batch(t(a), *map(t, walks[:3]), t(b),
+                                 *map(t, walks[3:]), **kw)
+        pal = xdrop_pallas(jnp.asarray(a), *map(jnp.asarray, walks[:3]),
+                           jnp.asarray(b), *map(jnp.asarray, walks[3:]),
+                           pairs_per_block=e, interpret=True, **kw)
+        for x, o, p in zip(both, one, pal):
+            np.testing.assert_array_equal(x[d].numpy(), o.numpy())
+            np.testing.assert_array_equal(x[d].numpy(), np.asarray(p))
+
+
+def test_xdrop_steps_per_pair():
+    """``with_steps``: per pair, the steps it ran; with a band wider than
+    both sequences and no retirement every pair runs to la + lb − 1 (or
+    max_steps); a (2, E) call counts each direction as its single call."""
+    rng = np.random.default_rng(5)
+    e = 6
+    a, b = _pairs(rng, e, 40, 30, 0.1)
+    ba, sa, lna, bb, sb, lnb = (torch.from_numpy(x) for x in
+                                _two_direction_walks(rng, e, 40, 30))
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    for ms in (300, 25):
+        *_, steps = xdrop_extend_batch_ref(ta, ba, sa, lna, tb, bb, sb, lnb,
+                                           band=161, max_steps=ms,
+                                           xdrop=10**6, with_steps=True)
+        want = torch.clamp(lna + lnb - 1, min=0, max=ms)
+        assert torch.equal(steps, want)
+    *_, cells, steps = xdrop_extend_batch_ref(ta, ba, sa, lna, tb, bb, sb, lnb,
+                                              band=9, xdrop=3,
+                                              with_cells=True, with_steps=True)
+    for d in range(2):
+        *_, c1, s1 = xdrop_extend_batch_ref(
+            ta, ba[d], sa[d], lna[d], tb, bb[d], sb[d], lnb[d], band=9,
+            xdrop=3, with_cells=True, with_steps=True)
+        assert torch.equal(steps[d], s1) and torch.equal(cells[d], c1)
+
+
+@pytest.mark.parametrize("bad", ["mixed", "rows", "three_dims", "flat_a"])
+def test_xdrop_malformed_walks_raise(bad):
+    rng = np.random.default_rng(1)
+    a, b = _pairs(rng, 5, 30, 30, 0.1)
+    walks = [torch.from_numpy(x) for x in _two_direction_walks(rng, 5, 30, 30)]
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    if bad == "mixed":  # base_a (2, E), the rest (E,)
+        walks = [walks[0]] + [w[0] for w in walks[1:]]
+    elif bad == "rows":  # (2, E + 1) walks for E rows
+        walks = [torch.cat([w, w[:, :1]], 1) for w in walks]
+    elif bad == "three_dims":
+        walks = [w[None] for w in walks]
+    else:
+        ta = ta.reshape(-1)
+    with pytest.raises(ValueError, match="xdrop"):
+        xdrop_extend_batch(ta, *walks[:3], tb, *walks[3:], band=9)
+    with pytest.raises(ValueError, match="xdrop"):
+        xdrop_extend_batch_ref(ta, *walks[:3], tb, *walks[3:], band=9)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_batch_extend_makes_one_op_call(seed):
+    """A dispatch spy: ``batch_extend`` calls the ``xdrop_extend`` op once,
+    with (2, E) walks, and equals JAX's ``batch_extend``."""
+    from repro_torch.core.backend import register_op
+
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(tuple(args[1].shape))
+        return xdrop_extend_batch(*args, **kw)
+
+    a, la, b, lb, pa, pb = _seeded_pairs(seed, e=13)
+    kw = dict(k=15, xdrop=20, band=65, max_steps=400)
+    register_op("xdrop_extend", "cuda", spy)
+    try:
+        t = tal.batch_extend(*[torch.from_numpy(x)
+                               for x in (a, la, b, lb, pa, pb)],
+                             backend="cuda", **kw)
+    finally:
+        register_op("xdrop_extend", "cuda", xdrop_extend_batch)
+    assert calls == [(2, 13)]
+    j = jal.batch_extend(*map(jnp.asarray, (a, la, b, lb, pa, pb)),
+                         backend="reference", **kw)
+    for f in jal.PairAlignment._fields:
+        np.testing.assert_array_equal(getattr(t, f).numpy(),
+                                      np.asarray(getattr(j, f)), f)

@@ -49,6 +49,139 @@ def test_xdrop_kernel_matches_plain(card, band, direction):
         assert torch.equal(g, w)
 
 
+def _xdrop_walks(rng, e, la, lb, direction, err=0.08, alphabet=4):
+    """Seeded pairs of related sequences and their walks: forward from 0 or
+    backward from the last base; numpy arrays."""
+    a = rng.integers(0, alphabet, (e, la)).astype(np.uint8)
+    b = a[:, :lb].copy() if lb <= la else np.concatenate(
+        [a, rng.integers(0, alphabet, (e, lb - la))], 1).astype(np.uint8)
+    b = np.where(rng.random(b.shape) < err, (b + 1) % alphabet, b)
+    la_ = rng.integers(1, la + 1, e).astype(np.int32)
+    lb_ = rng.integers(1, lb + 1, e).astype(np.int32)
+    base_a = np.zeros(e, np.int32) if direction == 1 else la_ - 1
+    base_b = np.zeros(e, np.int32) if direction == 1 else lb_ - 1
+    step = np.full(e, direction, np.int32)
+    return [a, base_a, step, la_, b.astype(np.uint8), base_b, step, lb_]
+
+
+def _xdrop_same(card, np_args, **kw):
+    """One launch of the kernel equals the plain version exactly."""
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(card) for x in np_args]
+    before = K.KERNELS["xdrop"].launches
+    got = K.xdrop_extend_batch(*args, **kw)
+    assert K.KERNELS["xdrop"].launches == before + 1
+    want = K.xdrop_extend_batch_ref(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("band", [1, 2, 3, 31, 32, 33, 34, 63, 64, 65, 66,
+                                  127, 255, 256])
+def test_xdrop_kernel_every_register_count_and_parity(card, band):
+    """Both parities of c = band // 2 and 1-4 registers a lane, forward and
+    backward walks, pairs longer than several 64-step ring refills."""
+    rng = np.random.default_rng(1000 + band)
+    for direction in (1, -1):
+        args = _xdrop_walks(rng, 45, 700, 650, direction)
+        _xdrop_same(card, args, band=band, max_steps=4096, xdrop=30)
+
+
+def test_xdrop_kernel_two_directions_in_one_launch(card):
+    """(2, E) walks: one launch, equal to the plain version and to two
+    single-direction launches."""
+    rng = np.random.default_rng(7)
+    e, la, lb = 300, 900, 800
+    fwd = _xdrop_walks(rng, e, la, lb, 1)
+    a, b = fwd[0], fwd[4]
+    bwd_base_a = rng.integers(0, la, e).astype(np.int32)
+    bwd_base_b = rng.integers(0, lb, e).astype(np.int32)
+    walks = [np.stack([f, g]) for f, g in (
+        (fwd[1], bwd_base_a), (fwd[2], -fwd[2]), (fwd[3], bwd_base_a + 1),
+        (fwd[5], bwd_base_b), (fwd[6], -fwd[6]), (fwd[7], bwd_base_b + 1))]
+    kw = dict(band=65, max_steps=4096, xdrop=30)
+    got = _xdrop_same(card, [a, *walks[:3], b, *walks[3:]], **kw)
+    for d in range(2):
+        one = _xdrop_same(card, [a, *(w[d] for w in walks[:3]), b,
+                                 *(w[d] for w in walks[3:])], **kw)
+        for g, o in zip(got, one):
+            assert torch.equal(g[d], o)
+
+
+@pytest.mark.parametrize("band", [33, 65, 256])
+def test_xdrop_kernel_ties_across_lanes_and_registers(card, band):
+    """A two-letter alphabet with free gaps scores many cells of a step
+    alike: the first maximum (lowest band offset) must win, as in the plain
+    version."""
+    rng = np.random.default_rng(band)
+    args = _xdrop_walks(rng, 64, 400, 400, 1, err=0.3, alphabet=2)
+    _xdrop_same(card, args, band=band, max_steps=4096, xdrop=12, match=1,
+                mismatch=0, gap=0)
+    # identical sequences: equal scores on mirrored offsets
+    args[4] = args[0].copy()
+    _xdrop_same(card, args, band=band, max_steps=4096, xdrop=6, match=2,
+                mismatch=-3, gap=-1)
+
+
+def test_xdrop_kernel_edge_walks(card):
+    """Zero and negative lengths, a backward walk from base 0 (every fetch
+    clamped), xdrop = 0, and pairs stopped by max_steps."""
+    rng = np.random.default_rng(11)
+    e = 40
+    a, base_a, step, la, b, base_b, _, lb = _xdrop_walks(rng, e, 300, 300, 1,
+                                                         err=0.0)
+    la[:5], lb[5:10] = 0, 0
+    la[10:12], lb[10:12] = -3, 2
+    base_a[12:20], base_b[12:20] = 0, 0
+    step = step.copy()
+    step[12:20] = -1
+    for xd, ms in ((0, 4096), (30, 1), (30, 7), (30, 64), (30, 65), (30, 129)):
+        _xdrop_same(card, [a, base_a, step, la, b, base_b, step, lb],
+                    band=65, max_steps=ms, xdrop=xd)
+
+
+def test_xdrop_kernel_malformed_walks_raise(card):
+    rng = np.random.default_rng(2)
+    args = [torch.from_numpy(x).to(card)
+            for x in _xdrop_walks(rng, 8, 50, 50, 1)]
+    bad = list(args)
+    bad[1] = torch.stack([args[1], args[1]])  # (2, E) base_a, (E,) others
+    with pytest.raises(ValueError, match="base_a"):
+        K.xdrop_extend_batch(*bad)
+    with pytest.raises(ValueError, match="band"):
+        K.xdrop_extend_batch(*args, band=257)
+
+
+def test_assemble_on_card_pads_not_extended(card):
+    """A bucket with n_live < bucket in 256-pair chunks: one x-drop launch
+    per chunk that holds a live pair, and every result equal to the
+    reference backend's."""
+    import dataclasses
+
+    from repro_torch.core.spmat import ell_equal
+
+    genome = simulate_genome(np.random.default_rng(4), 15000)
+    rs = simulate_reads(genome, depth=10, mean_len=900, std_len=150,
+                        error_rate=0.03, seed=5)
+    cfg = PipelineConfig(m_capacity=1 << 17, upper=40, read_capacity=96,
+                         band=65, xdrop=25, align_chunk=256, device="cuda")
+    K.reset_launch_counts()
+    res = assemble(rs.codes, rs.lengths, cfg)
+    n_live, bucket = res.stats["n_aligned"], res.stats["align_bucket"]
+    assert 256 < n_live < bucket
+    assert K.launch_counts()["xdrop"] == -(-n_live // 256)
+    ref = assemble(rs.codes, rs.lengths,
+                   dataclasses.replace(cfg, backend="reference"))
+    assert ell_equal(res.r_graph, ref.r_graph)
+    assert ell_equal(res.s_graph, ref.s_graph)
+    for key in ref.stats:
+        if key not in ("backend", "tr_backend", "distribution",
+                       "cc_iterations", "peak_hbm_bytes", "hbm_bytes_in_use"):
+            assert res.stats[key] == ref.stats[key], key
+
+
 @pytest.mark.parametrize("m,k,n", [(1, 1, 1), (65, 33, 47), (200, 130, 70)])
 def test_minplus_kernel_matches_plain(card, m, k, n):
     g = torch.Generator().manual_seed(m + n)
