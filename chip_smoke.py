@@ -48,14 +48,21 @@ exit, no result line) on any check that does not hold:
              hold one ``kernel_launch`` span per launch.
              spgemm is held on three inputs: the shard_map run's overlap
              launch, the four stage panels rank (0, 0) of a 4×4 grid holds
-             (non-zero offsets) and the distributed TR's first launch;
+             (non-zero offsets) and the distributed TR's first launch; each
+             line gives the fullest row's live candidates, the shared
+             memory a block gets for them, the blocks an SM holds at it and
+             the instances' registers and spills;
 4b. cc     — ``connected_components(backend="cuda")`` on three inputs: the
              state graphs ``expand_states`` of phase 3's S (its launch
              counts, set to 0 just before, are the cc record's) and R, and
              a permuted chain of 2^17 vertices capped at ``max_iters=1003``
-             (125 chunks and a 3-round tail, unconverged).  Labels and
-             rounds must equal the chunk driver over the plain rounds on
-             the same tensors, and labels the ``reference`` backend's;
+             (125 chunks and a 3-round tail, unconverged).  Each call must
+             be one launch with one ``kernel_launch`` span; its labels,
+             rounds and chunks must equal the chunk driver over the plain
+             rounds on the same tensors, and its labels the ``reference``
+             backend's; each line names the path the call took (one block,
+             or the cooperative grid).  The cc record times a whole call on
+             S's state graph;
 5. parity  — ``assemble(backend="reference")`` (plain torch ops and the host
              contig walk) on the card: R, S, every stats key but the timing,
              memory and path labels, and the polished contigs must be equal.
@@ -153,21 +160,38 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def ptxas_summary(log: str):
-    """One line per kernel instance of an ``nvcc -Xptxas -v`` log: its
-    template arguments (if any), registers, shared memory and spills."""
+def _entry(mangled: str) -> str:
+    """``name<args>`` of a kernel's mangled entry name."""
     import re
 
-    out, entry, spill = [], "", ""
+    body = mangled[3:] if mangled.startswith("_ZN") else mangled
+    name, i = mangled, 0
+    while i < len(body) and body[i].isdigit():
+        j = i
+        while body[j].isdigit():
+            j += 1
+        k = int(body[i:j])
+        name, i = body[j:j + k], j + k
+    args = re.match(r"I((?:Li\d+E)+)E", body[i:])
+    if args:
+        name += "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+    return name
+
+
+def ptxas_summary(log: str):
+    """``{kernel<args>: "registers, shared memory; spills"}`` of an ``nvcc
+    -Xptxas -v`` log, one entry per kernel instance."""
+    import re
+
+    out, entry, spill = {}, "", ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            args = re.findall(r"ILi(\d+)E(?:Li(\d+)E)?", m.group(1))
-            entry = ("<" + ",".join(x for x in args[0] if x) + ">") if args else ""
+            entry = _entry(m.group(1))
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line:
-            out.append(f"{entry} {line.split(':', 1)[-1].strip()}; {spill}".strip())
+            out[entry] = f"{line.split(':', 1)[-1].strip()}; {spill}"
     return out
 
 
@@ -208,7 +232,8 @@ def main() -> None:
         from repro_torch.core.transitive_reduction import transitive_reduction
         from repro_torch.kernels.build import BUILD_LOG, build_all
         from repro_torch.kernels.cc import ops as cc_ops
-        from repro_torch.obs import write_chrome_trace
+        from repro_torch.kernels.spgemm import ops as sp_ops
+        from repro_torch.obs import Tracer, tracing, write_chrome_trace
     except ImportError as e:
         fail(f"the repository's src/repro_torch is not beside this script: {e}")
 
@@ -228,9 +253,10 @@ def main() -> None:
     t0 = time.perf_counter()
     paths = build_all(KERNEL_NAMES)
     print(f"[build] {len(paths)} kernels built in {time.perf_counter() - t0:.1f} s")
+    ptxas = {name: ptxas_summary(BUILD_LOG.get(name, "")) for name in KERNEL_NAMES}
     for name in KERNEL_NAMES:
-        for line in ptxas_summary(BUILD_LOG.get(name, "")):
-            print(f"[build] {name}: {line}")
+        for entry, line in ptxas[name].items():
+            print(f"[build] {name}: {entry}: {line}")
     sys.stdout.flush()
 
     # --- 3. main ---
@@ -634,7 +660,10 @@ def main() -> None:
     # spgemm: the shard_map run's overlap launch, rank (0, 0)'s four stage
     # panels on a 4x4 grid, and the distributed TR's first launch
     def spgemm_case(label, args, kw):
-        got = K.spgemm_ring_stages(*args, **kw)
+        tr = Tracer(memory=False)
+        with tracing(tr):
+            got = K.spgemm_ring_stages(*args, **kw)
+        (launch,) = tr.find("kernel_launch")
         want = K.spgemm_ring_stages_ref(*args, **kw)
         for key in want[1]:
             check(torch.equal(got[1][key], want[1][key]),
@@ -671,10 +700,23 @@ def main() -> None:
                      for s in range(stages))
         t_bytes = (sum(t.numel() * t.element_size() for t in tensors)
                    + b_rows * b_row) / HBM_BYTES_S
+        sr = kw["semiring"]
+        inst = f"<{sp_ops.SEMIRINGS[sr.name]}>"
+        v_max = launch.attrs["max_candidates"]
         out = {
             "input": label, "stages": stages, "rows": n_a, "k_a": ka,
             "k_b": b_cols.shape[2], "candidates": int(n_cand),
             "b_rows_read": b_rows,
+            # the block's sizing: the fullest row's live candidates (after
+            # the min-plus zero products), its shared memory, and the blocks
+            # an SM holds at it; the instances' registers and spills
+            "max_candidates_per_row": v_max,
+            "max_candidates_before_mul": int(v.max()),
+            "shared_bytes_per_block": launch.attrs["shared_bytes"],
+            "blocks_per_sm": sp_ops.blocks_per_sm(sr, v_max, ka,
+                                                   b_cols.shape[2]),
+            "ptxas": {k: ptxas["spgemm"].get(f"{k}{inst}") for k in (
+                "spgemm_count_kernel", "spgemm_stages_kernel")},
             "max_abs_err": 0,  # exact: any difference failed above
             "ms": time_ms(lambda: K.spgemm_ring_stages(*args, **kw), 5),
             "plain_ms": time_ms(lambda: K.spgemm_ring_stages_ref(*args, **kw), 1),
@@ -724,85 +766,104 @@ def main() -> None:
         B.register_op(op, "cuda", fn)
 
     # --- 4b. cc ---
+    def cc_plain(cols, max_iters):
+        """The chunk driver over the plain rounds: (labels, rounds, chunks)."""
+        n = cols.shape[0]
+        rounds, n_chunks, rem = cc_ops.chunk_rule(n if max_iters is None
+                                                  else max_iters)
+        return cc_ops._drive_chunks(
+            cols, cc_ops.transpose_ell(cols),
+            torch.arange(n, dtype=torch.int32, device=cols.device),
+            rounds=rounds, n_chunks=n_chunks, rem=rem,
+            rounds_fn=K.cc_rounds_ref)
+
     def cc_case(label, cols, max_iters=None):
-        """connected_components on the card against the chunk driver over
-        the plain rounds (labels, rounds) and the reference backend
-        (labels)."""
+        """One connected_components call on the card: one launch, its
+        labels, rounds and chunks equal to the chunk driver over the plain
+        rounds, its labels to the reference backend's."""
         n = cols.shape[0]
         adj = EllMatrix(cols=cols, vals={}, n_cols=n)
+        tr = Tracer(memory=False)
         before = K.launch_counts()["cc"]
         t0 = time.perf_counter()
-        lab, it = connected_components(adj, max_iters=max_iters, backend="cuda")
+        with tracing(tr):
+            lab, it = connected_components(adj, max_iters=max_iters,
+                                           backend="cuda")
         torch.cuda.synchronize()
         wall_cc = time.perf_counter() - t0
         n_launch = K.launch_counts()["cc"] - before
-        cap = n if max_iters is None else max_iters
-        rounds = min(cc_ops.ROUNDS_PER_CALL, cap)
-        ic = cc_ops.transpose_ell(cols)
-        p_lab, p_it, p_calls = cc_ops._drive_chunks(
-            cols, ic, torch.arange(n, dtype=torch.int32, device=cols.device),
-            rounds=rounds, n_chunks=cap // rounds, rem=cap % rounds,
-            rounds_fn=K.cc_rounds_ref)
+        spans = list(tr.find("kernel_launch"))
+        check(n_launch == 1 and len(spans) == 1,
+              f"cc ({label}): {n_launch} launches, {len(spans)} launch spans "
+              f"in one call")
+        sp = spans[0].attrs
+        p_lab, p_it, p_chunks = cc_plain(cols, max_iters)
         r_lab, r_it = connected_components(adj, max_iters=max_iters,
                                            backend="reference")
-        check(torch.equal(lab, p_lab) and it == p_it and n_launch == p_calls,
-              f"cc ({label}): kernel driver differs from the plain driver "
-              f"(rounds {it} vs {p_it}, launches {n_launch} vs {p_calls})")
+        check(torch.equal(lab, p_lab) and it == p_it == sp["rounds"]
+              and sp["chunks"] == p_chunks,
+              f"cc ({label}): kernel differs from the plain driver (rounds "
+              f"{it} vs {p_it}, chunks {sp['chunks']} vs {p_chunks})")
         check(torch.equal(lab, r_lab),
               f"cc ({label}): labels differ from the reference backend")
         out = {"input": label, "n": n, "k_out": cols.shape[1],
-               "k_in": ic.shape[1], "max_iters": cap, "rounds": it,
+               "edges": sp["edges"], "path": sp["path"],
+               "max_iters": n if max_iters is None else max_iters,
+               "rounds": it, "chunks": sp["chunks"],
                "reference_rounds": r_it, "launches": n_launch,
                "components": int(torch.unique(lab).numel()),
                "wall_s": wall_cc}
         print(f"[cc] {json.dumps(out)}", flush=True)
-        return out, ic
+        return out
 
     s_states = expand_states(res.s_graph).cols.contiguous()
     K.reset_launch_counts()
-    cc_s, ic_s = cc_case("expand_states(S)", s_states)
+    cc_s = cc_case("expand_states(S)", s_states)
     cc_launches = K.launch_counts()
-    check(cc_launches["cc"] > 0, "kernel cc was not launched on its path")
-    cc_r, _ = cc_case("expand_states(R)",
-                      expand_states(res.r_graph).cols.contiguous())
+    check(cc_launches["cc"] == 1, "kernel cc was not launched once on its path")
+    cc_r = cc_case("expand_states(R)",
+                   expand_states(res.r_graph).cols.contiguous())
     perm = np.random.default_rng(args.seed).permutation(1 << 17)
     chain = np.full((1 << 17, 1), -1, np.int32)
     chain[perm[:-1], 0] = perm[1:]
-    cc_chain, _ = cc_case("permuted chain of 2^17 vertices",
-                          torch.from_numpy(chain).cuda(), max_iters=1003)
-    check(cc_chain["rounds"] == 1003 and cc_chain["launches"] == 126
-          and cc_chain["components"] > 1,
+    cc_chain = cc_case("permuted chain of 2^17 vertices",
+                       torch.from_numpy(chain).cuda(), max_iters=1003)
+    check(cc_chain["rounds"] == 1003 and cc_chain["chunks"] == 126
+          and cc_chain["components"] > 1 and cc_chain["path"] == "grid",
           f"capped chain: {cc_chain}")
-    # the record: one launch of 8 rounds on S's state graph from the
-    # identity labels, the driver's first call
+    # the one-chunk entry (cc_rounds) on S's state graph, against the plain
+    # rounds (not counted: the counts above are the record's)
     n_s = s_states.shape[0]
+    ic_s = cc_ops.transpose_ell(s_states)
     lab0 = torch.arange(n_s, dtype=torch.int32, device=s_states.device)
-    rounds = cc_ops.ROUNDS_PER_CALL
-    got = K.cc_rounds(s_states, ic_s, lab0, rounds)
-    want = K.cc_rounds_ref(s_states, ic_s, lab0, rounds)
+    got = K.cc_rounds(s_states, ic_s, lab0, cc_ops.ROUNDS_PER_CALL)
+    want = K.cc_rounds_ref(s_states, ic_s, lab0, cc_ops.ROUNDS_PER_CALL)
     check(torch.equal(got[0], want[0]) and int(got[1]) == int(want[1]),
-          "cc: kernel differs from its plain version")
-    live = int((s_states >= 0).sum()) + int((ic_s >= 0).sum())
-    # bytes: oc, ic and the labels read once, the labels and the flag
-    # written once; operations: a min per live slot, and per vertex a min
-    # with its own label in each hook, the jump and the compare, per round
-    cc_bytes = 4 * (s_states.numel() + ic_s.numel() + 2 * n_s + 1)
-    cc_ops_n = rounds * (live + 4 * n_s)
+          "cc: the one-chunk entry differs from the plain rounds")
+    # the record: one whole call on S's state graph.  Bytes: the ELL read
+    # once, the labels written once; operations, per round executed: a min
+    # per live edge in each hook, and per vertex the jump, the compare and
+    # the three label writes
+    rounds_s, edges_s = cc_s["rounds"], cc_s["edges"]
+    cc_bytes = 4 * (s_states.numel() + n_s)
+    cc_ops_n = rounds_s * (edges_s + 4 * n_s)
     t_bytes = cc_bytes / HBM_BYTES_S * 1e3
     t_ops = cc_ops_n / I32_OPS_S * 1e3
+    adj_s = EllMatrix(cols=s_states, vals={}, n_cols=n_s)
     records.append({
         "name": "cc", "route": "cuda", "source": "src/repro_torch/csrc/cc.cu",
         "replaces": REPLACES["cc"], "launches": cc_launches["cc"],
         "max_abs_err": 0,  # exact: any difference failed above
-        "ms": time_ms(lambda: K.cc_rounds(s_states, ic_s, lab0, rounds), 20),
-        "plain_ms": time_ms(lambda: K.cc_rounds_ref(s_states, ic_s, lab0,
-                                                    rounds), 3),
+        "ms": time_ms(lambda: connected_components(adj_s, backend="cuda"), 20),
+        "plain_ms": time_ms(lambda: cc_plain(s_states, None), 1),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
-        "shapes": {"n": n_s, "k_out": s_states.shape[1],
-                   "k_in": ic_s.shape[1], "rounds": rounds,
-                   "live_slots": live},
+        "unit": "one connected_components call",
+        "floor_barriers": 3 * rounds_s,
+        "shapes": {"n": n_s, "k_out": s_states.shape[1], "edges": edges_s,
+                   "rounds": rounds_s, "chunks": cc_s["chunks"],
+                   "path": cc_s["path"]},
         "variants": [cc_s, cc_r, cc_chain],
     })
     print(f"[kernels] {json.dumps(records[-1])}", flush=True)

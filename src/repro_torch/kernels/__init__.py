@@ -5,8 +5,8 @@
   pileup/  — banded pileup + majority vote (Consensus)
   spgemm/  — ring-SUMMA local SpGEMM stages (SpGEMM and the distributed
              transitive reduction under ``distribution="shard_map"``)
-  cc/      — fused hook/shortcut connected-components rounds
-             (``core.components.connected_components``)
+  cc/      — hook/shortcut connected-components rounds, a whole
+             ``core.components.connected_components`` call in one launch
 
 Sources are ``repro_torch/csrc/<name>.cu``; ``build.py`` compiles and binds
 them.  Importing this package registers every kernel and its plain version

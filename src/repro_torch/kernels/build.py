@@ -35,8 +35,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-#: ``nvcc`` output (``-Xptxas -v``: registers, shared memory, spills) of the
-#: builds this process ran, by kernel name
+#: ``nvcc`` output (``-Xptxas -v``: registers, shared memory, spills) of each
+#: library :func:`build_all` returned, by kernel name (kept beside the
+#: library as ``.log``, so a reused library has it too)
 BUILD_LOG: Dict[str, str] = {}
 
 
@@ -73,6 +74,10 @@ def build_all(names: Sequence[str]) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: library_path(n) for n in names}
     todo = [n for n in names if not paths[n].exists()]
+    for n in names:
+        log = paths[n].with_suffix(".log")
+        if n not in todo and n not in BUILD_LOG and log.exists():
+            BUILD_LOG[n] = log.read_text()
     if not todo:
         return paths
     nvcc = find_nvcc()
@@ -89,6 +94,7 @@ def build_all(names: Sequence[str]) -> Dict[str, Path]:
         if p.returncode != 0:
             failed.append(f"{n}: nvcc exited {p.returncode}\n{out}")
         else:
+            paths[n].with_suffix(".log").write_text(out)
             os.replace(tmp, paths[n])
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -109,10 +115,12 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
         self._err = None
+        self._lib = None
 
     def _load(self):
         if self._fn is None:
             lib = ctypes.CDLL(str(build_all([self.name])[self.name]))
+            self._lib = lib
             fn = getattr(lib, f"{self.name}_launch")
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
@@ -122,13 +130,25 @@ class CudaKernel:
             self._fn, self._err = fn, err
         return self._fn
 
-    def launch(self, *args) -> None:
-        """Launch on the current stream; raise on a refused launch."""
-        code = self._load()(*args)
+    def entry(self, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
+        """Another C function of the kernel's library (a helper launch or a
+        query); calling it counts no launch."""
+        self._load()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        return fn
+
+    def check(self, code: int, what: str) -> None:
+        """Raise if a CUDA error code returned by ``what`` is not 0."""
         if code != 0:
             msg = self._err(code).decode()
-            raise RuntimeError(f"{self.name} kernel launch failed: {msg} "
+            raise RuntimeError(f"{self.name} {what} failed: {msg} "
                                f"(cudaError {code})")
+
+    def launch(self, *args) -> None:
+        """Launch on the current stream; raise on a refused launch."""
+        self.check(self._load()(*args), "kernel launch")
         self.launches += 1
 
 

@@ -1,10 +1,14 @@
-"""Connected-components hook/shortcut rounds: CUDA kernel wrapper, its
-plain version and the ``cc_labels`` op's chunk driver."""
+"""Connected-components hook/shortcut rounds: the CUDA kernel's wrapper (a
+whole ``cc_labels`` call in one launch), its plain versions and the chunk
+rule."""
 
 from .ops import (  # noqa: F401
     KERNEL,
+    cc_components,
     cc_labels_cuda,
+    cc_path,
     cc_rounds,
+    edge_list,
     hbm_round_trips,
     transpose_ell,
 )

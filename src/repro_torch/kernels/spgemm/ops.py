@@ -8,6 +8,13 @@ there is no fallback to the plain version on the card.  The kernel serves
 the two semirings the explicit-exchange path multiplies in: the overlap
 semiring (operands ``{"pos"}``, result ``{"cnt", "apos", "bpos"}``) and
 the min-plus orientation semiring (``{MP}`` (4,) f32 on both sides).
+
+A launch is sized by the candidates that exist: a count launch of the same
+library finds the most live candidates any row of the launch holds, and
+the largest output column; the wrapper reads both (the launch's one host
+read), gives each block room for that many candidates
+(:func:`shared_bytes`) and the radix sort as many 4-bit passes as the
+column needs, and raises if the fullest row does not fit in a block.
 """
 
 from __future__ import annotations
@@ -26,22 +33,54 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("spgemm", [
     _I, _P, _P, _P, _P, _P,  # semiring, offsets, a_cols, a_vals, b_cols, b_vals
     _P, _P, _P, _P, _P,  # out cols, out value leaves 0..2, overflow
-    _I, _I, _I, _I, _I, _I, _P,  # stages, n, ka, nb, kb, capacity, stream
+    _I, _I, _I, _I, _I, _I,  # stages, n, ka, nb, kb, capacity
+    _I, _I, _P,  # candidates a block holds, column bits, stream
 ])
+#: the count launch: (semiring, offsets, a_cols, a_vals, b_cols, b_vals,
+#: maxes, stages, n, ka, nb, kb, stream)
+_COUNT_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 #: template instances of the kernel, by semiring name
 SEMIRINGS = {"overlap_pospair": 0, "minplus_orient": 1}
 #: shared memory a block may use on Hopper (hopper-kernels guide §1)
 MAX_SHARED_BYTES = 232448
+#: threads of a block, and the radix sort's digit counters a thread holds
+THREADS = 256
+RADIX = 16
 
 
-def sort_keys(ka: int, kb: int) -> int:
-    """Keys a block sorts: the K_A·K_B candidates padded to a power of two."""
-    return 1 << max(0, ka * kb - 1).bit_length()
+def shared_bytes(sr_id: int, vcap: int, ka: int, kb: int) -> int:
+    """Dynamic shared memory of one block holding ``vcap`` candidates of a
+    row with ``ka`` A slots and B rows of ``kb`` (``csrc/spgemm.cu:layout``):
+    each candidate's operands (8 bytes overlap, 16 min-plus), column and two
+    sort indices; the live A slots and the B rows they select; the offset
+    of each (A slot, 32-lane chunk of its B row); the radix counters, one
+    pad word every 32; the scan scratch."""
+    o = ((8 if sr_id == 0 else 16) * vcap + 12 * vcap + 8 * ka
+         + 4 * ka * -(-kb // 32))
+    return (-(-o // 16) * 16 + 4 * (RADIX * THREADS + RADIX * THREADS // 32)
+            + 4 * 64)
 
 
-def shared_bytes(ka: int, kb: int) -> int:
-    """Dynamic shared memory of one block: 8-byte keys + the scan scratch."""
-    return 8 * sort_keys(ka, kb) + 4 * 40
+def block_candidates(max_candidates: int) -> int:
+    """Candidates a block makes room for: the launch's most in a row,
+    rounded up to a multiple of 4."""
+    return max(4, -(-max_candidates // 4) * 4)
+
+
+def live_candidates(offsets, a_cols, b_cols) -> torch.Tensor:
+    """Per (stage, row), the candidates that exist before (×): the sum, over
+    the row's live A slots inside the stage's B row block, of the live slots
+    of the B row each selects.  ``(S, n)`` int64.  (The kernel's count
+    launch computes the same on the card, less the min-plus products that
+    are zero.)"""
+    stages, _, _ = a_cols.shape
+    nb = b_cols.shape[1]
+    reb = a_cols.long() - offsets.long()[:, None, None]
+    live_a = (a_cols >= 0) & (reb >= 0) & (reb < nb)
+    b_live = (b_cols >= 0).sum(-1)
+    sidx = torch.arange(stages, device=a_cols.device)[:, None, None]
+    per = torch.where(live_a, b_live[sidx, reb.clamp(0, max(nb - 1, 0))], 0)
+    return per.sum(-1)
 
 
 def _check_vals(sr_id, a_vals, b_vals, semiring):
@@ -96,11 +135,6 @@ def spgemm_ring_stages(offsets, a_cols, a_vals, b_cols, b_vals, *,
             or tuple(bv.shape) != (stages, nb, kb) + b_tail:
         raise ValueError(f"spgemm: value shapes {tuple(av.shape)}, "
                          f"{tuple(bv.shape)} do not match the column panels")
-    if shared_bytes(ka, kb) > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"spgemm: K_A·K_B = {ka * kb} candidates per row need "
-            f"{shared_bytes(ka, kb)} bytes of shared memory; a block has "
-            f"{MAX_SHARED_BYTES}")
     if capacity < 1:
         raise ValueError(f"spgemm: capacity must be >= 1, got {capacity}")
 
@@ -117,14 +151,45 @@ def spgemm_ring_stages(offsets, a_cols, a_vals, b_cols, b_vals, *,
         leaves = [out[MP], out[MP], out[MP]]
     overflow = torch.zeros((1,), **i32)
     if stages and n:
+        ptrs = (offsets.data_ptr(), a_cols.data_ptr(), av.data_ptr(),
+                b_cols.data_ptr(), bv.data_ptr())
+        stream = stream_handle(a_cols)
+        # the launch's most candidates in a row and largest output column:
+        # its one host read, which sizes the main launch
+        maxes = torch.zeros(2, **i32)
+        KERNEL.check(KERNEL.entry("spgemm_count", _COUNT_ARGS)(
+            sr_id, *ptrs, maxes.data_ptr(), stages, n, ka, nb, kb, stream),
+            "count launch")
+        v_max, c_max = maxes.tolist()
+        vcap = block_candidates(v_max)
+        shmem = shared_bytes(sr_id, vcap, ka, kb)
+        if shmem > MAX_SHARED_BYTES:
+            raise ValueError(
+                f"spgemm: a row of this launch holds {v_max} live candidates, "
+                f"which need {shmem} bytes of shared memory; a block has "
+                f"{MAX_SHARED_BYTES}")
         with span("kernel_launch", kind="kernel", kernel="spgemm_ring_stages",
-                  stages=stages, rows=n):
+                  stages=stages, rows=n, max_candidates=v_max,
+                  shared_bytes=shmem):
             KERNEL.launch(
-                sr_id, offsets.data_ptr(), a_cols.data_ptr(), av.data_ptr(),
-                b_cols.data_ptr(), bv.data_ptr(), out_cols.data_ptr(),
+                sr_id, *ptrs, out_cols.data_ptr(),
                 *(t.data_ptr() for t in leaves), overflow.data_ptr(),
-                stages, n, ka, nb, kb, capacity, stream_handle(a_cols))
+                stages, n, ka, nb, kb, capacity, vcap,
+                max(c_max, 0).bit_length(), stream)
     return out_cols, out, overflow[0]
+
+
+def blocks_per_sm(semiring: Semiring, max_candidates: int, ka: int,
+                  kb: int) -> int:
+    """Blocks of the main kernel one SM holds at the shared memory a launch
+    with ``max_candidates`` in its fullest row, ``ka`` A slots and B rows of
+    ``kb`` uses (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; on the
+    card)."""
+    blocks = ctypes.c_int(0)
+    fn = KERNEL.entry("spgemm_blocks_per_sm", [_I, _I, _I, _I, _P])
+    KERNEL.check(fn(SEMIRINGS[semiring.name], block_candidates(max_candidates),
+                    ka, kb, ctypes.addressof(blocks)), "occupancy query")
+    return blocks.value
 
 
 register_op("spgemm_ring_stages", "cuda", spgemm_ring_stages)

@@ -5,6 +5,8 @@ Marked ``cuda``: they need an NVIDIA card and ``nvcc`` and skip elsewhere
 the card: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ from repro_torch.core.semiring import (
     minplus_orient_semiring,
     overlap_semiring,
 )
+from repro_torch.kernels.spgemm import ops as tops
 
 pytestmark = pytest.mark.cuda
 
@@ -266,6 +269,101 @@ def test_spgemm_kernel_matches_plain(card, kind, stages, n, nb, ka, kb, cap):
         assert int(want[2]) > 0  # the overflow path ran
 
 
+def _spgemm_same(card, kind, offsets, a_cols, a_vals, b_cols, b_vals, cap,
+                 n_out):
+    """One launch of the kernel against the plain version; returns the
+    plain outputs."""
+    sr = overlap_semiring if kind == "overlap" else minplus_orient_semiring
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(card)
+    args = (dev(offsets), dev(a_cols), {k: dev(v) for k, v in a_vals.items()},
+            dev(b_cols), {k: dev(v) for k, v in b_vals.items()})
+    kw = dict(semiring=sr, capacity=cap, n_cols_out=n_out)
+    before = K.KERNELS["spgemm"].launches
+    got = K.spgemm_ring_stages(*args, **kw)
+    assert K.KERNELS["spgemm"].launches == before + 1
+    want = K.spgemm_ring_stages_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    for key in want[1]:
+        assert torch.equal(got[1][key], want[1][key]), key
+    assert int(got[2]) == int(want[2])
+    return want
+
+
+@pytest.mark.parametrize("kind", ["overlap", "minplus"])
+@pytest.mark.parametrize("stages", [1, 4])
+def test_spgemm_kernel_empty_rows_and_ties(card, kind, stages):
+    """Rows with no live A slot, rows whose slots all fall outside the
+    stage's block, and many candidates on few columns (long runs, ties
+    broken by candidate order), past capacity."""
+    rng = np.random.default_rng(31 + stages)
+    n, nb, ka, kb = 96, 48, 24, 40
+    offsets, a_cols, a_vals, b_cols, b_vals = _stage_panels(
+        rng, kind, stages, n, nb, ka, kb, n_out=6)
+    a_cols[:, ::5] = -1  # empty rows
+    a_cols[:, 1::7] = np.where(a_cols[:, 1::7] >= 0, 10 ** 6, -1)  # elsewhere
+    want = _spgemm_same(card, kind, offsets, a_cols, a_vals, b_cols, b_vals,
+                        cap=4, n_out=6)
+    assert int(want[2]) > 0
+    assert (want[0][:, ::5] < 0).all()
+
+
+@pytest.mark.parametrize("kind", ["overlap", "minplus"])
+def test_spgemm_kernel_wide_grid_whose_live_candidates_fit(card, kind):
+    """K_A x K_B = 256 x 128 (32768 grid slots, 256 KB of 64-bit keys: more
+    than a block's shared memory) with 2 live B slots a row: the launch is
+    sized by the ~512 candidates that exist, and runs."""
+    rng = np.random.default_rng(5)
+    stages, n, nb, ka, kb = 2, 40, 300, 256, 128
+    offsets, a_cols, a_vals, b_cols, b_vals = _stage_panels(
+        rng, kind, stages, n, nb, ka, kb, n_out=700)
+    keep = np.zeros_like(b_cols, bool)
+    keep[:, :, [3, 90]] = True
+    b_cols = np.where(keep & (b_cols >= 0), b_cols, -1).astype(np.int32)
+    live = int(tops.live_candidates(*(torch.from_numpy(x) for x in (
+        offsets, a_cols, b_cols))).max())
+    assert 0 < live <= 2 * ka
+    assert 8 * 32768 > tops.MAX_SHARED_BYTES  # the old sizing refused it
+    _spgemm_same(card, kind, offsets, a_cols, a_vals, b_cols, b_vals,
+                 cap=64, n_out=700)
+
+
+def test_spgemm_kernel_row_too_full_raises(card):
+    """A row whose live candidates do not fit in a block raises, naming the
+    count, and launches nothing."""
+    stages, n, nb, ka, kb = 1, 2, 64, 512, 64
+    a_cols = np.tile(np.arange(ka, dtype=np.int32) % nb, (stages, n, 1))
+    b_cols = np.tile(np.arange(kb, dtype=np.int32), (stages, nb, 1))
+    pos = {"pos": np.zeros_like(a_cols)}
+    args = [torch.from_numpy(x).to(card) for x in (
+        np.zeros(stages, np.int32), a_cols, b_cols)]
+    before = K.KERNELS["spgemm"].launches
+    with pytest.raises(ValueError, match=f"{ka * kb} live candidates"):
+        K.spgemm_ring_stages(
+            args[0], args[1], {k: torch.from_numpy(v).to(card)
+                               for k, v in pos.items()},
+            args[2], {"pos": torch.zeros_like(args[2])},
+            semiring=overlap_semiring, capacity=8, n_cols_out=kb)
+    assert K.KERNELS["spgemm"].launches == before
+
+
+def test_spgemm_occupancy_several_blocks_per_sm(card):
+    """At the 4000-read overlap launch's fullest row (1891 candidates,
+    K_A = 160) an SM holds more than one block."""
+    assert tops.blocks_per_sm(overlap_semiring, 1891, 160, 56) > 1
+    assert tops.blocks_per_sm(minplus_orient_semiring, 1891, 160, 56) > 1
+    # the wrapper's mirror of the kernel's shared-memory layout
+    size = tops.KERNEL.entry("spgemm_shared_bytes", [ctypes.c_int] * 4,
+                             ctypes.c_longlong)
+    for sr in (0, 1):
+        for vcap, ka, kb in ((1892, 160, 56), (4, 1, 1), (100, 40, 40),
+                             (512, 256, 128)):
+            assert size(sr, vcap, ka, kb) == tops.shared_bytes(sr, vcap, ka,
+                                                               kb)
+
+
 def test_assemble_on_card_matches_reference_backend(card):
     genome = simulate_genome(np.random.default_rng(0), 20000)
     rs = simulate_reads(genome, depth=10, mean_len=1000, std_len=150,
@@ -356,26 +454,71 @@ def test_cc_kernel_matches_plain(card, rounds, n, k_out):
     assert K.KERNELS["cc"].launches == before + 3
 
 
-@pytest.mark.parametrize("max_iters", [13, 1003])
-def test_cc_labels_capped_tail_matches_plain(card, max_iters):
-    """The chunk driver on the card equals the driver over the plain rounds
-    (labels and rounds executed) on a permuted chain that does not converge
-    within ``max_iters``: 8-round chunks and a tail; and the reference
-    backend's labels equal both."""
+def _cc_plain_call(cols, max_iters):
+    """The plain chunk driver over the plain rounds: (labels, rounds
+    executed, chunks)."""
     from repro_torch.kernels.cc import ops as cc_ops
 
-    cols = torch.from_numpy(_chain(1 << 12, 5)).to(card)
-    got = cc_ops.cc_labels_cuda(cols, max_iters=max_iters)
-    ic = cc_ops.transpose_ell(cols)
-    lab = torch.arange(cols.shape[0], dtype=torch.int32, device=card)
-    rounds = min(8, max_iters)
-    want_lab, want_it, _ = cc_ops._drive_chunks(
-        cols, ic, lab, rounds=rounds, n_chunks=max_iters // rounds,
-        rem=max_iters % rounds, rounds_fn=K.cc_rounds_ref)
+    n = cols.shape[0]
+    rounds, n_chunks, rem = cc_ops.chunk_rule(n if max_iters is None
+                                              else max_iters)
+    return cc_ops._drive_chunks(
+        cols, cc_ops.transpose_ell(cols),
+        torch.arange(n, dtype=torch.int32, device=cols.device), rounds=rounds,
+        n_chunks=n_chunks, rem=rem, rounds_fn=K.cc_rounds_ref)
+
+
+@pytest.mark.parametrize("n,max_iters", [(1 << 12, 13), (1 << 12, 1003),
+                                         (1 << 15, 13), (1 << 15, 1003)])
+def test_cc_labels_capped_tail_matches_plain(card, n, max_iters):
+    """One launch on the card equals the chunk driver over the plain rounds
+    (labels, rounds executed, chunks) on a permuted chain that does not
+    converge within ``max_iters``: 8-round chunks and a tail, on the block
+    path (2^12 vertices) and the grid path (2^15); the reference backend's
+    labels equal both."""
+    from repro_torch.kernels.cc import ops as cc_ops
+
+    cols = torch.from_numpy(_chain(n, 5)).to(card)
+    assert cc_ops.cc_path(n, n - 1) == ("block" if n < 1 << 14 else "grid")
+    before = K.KERNELS["cc"].launches
+    got = cc_ops.cc_components(cols, max_iters=max_iters)
+    assert K.KERNELS["cc"].launches == before + 1
+    want_lab, want_it, want_chunks = _cc_plain_call(cols, max_iters)
     assert got[1] == want_it == max_iters
+    assert got[2] == want_chunks
     assert torch.equal(got[0], want_lab)
     ref = K.cc_labels_ref(cols, max_iters=max_iters)
     assert torch.equal(ref[0], got[0]) and ref[1] == max_iters
+
+
+@pytest.mark.parametrize("n,k_out,max_iters", [
+    (1, 1, None), (300, 3, None), (300, 3, 5), (9000, 4, None),
+    (9000, 4, 3), (9000, 4, 0), (70000, 6, None), (70000, 6, 11)])
+def test_cc_call_one_launch_both_paths(card, n, k_out, max_iters):
+    """A whole ``connected_components(backend="cuda")`` call is one launch
+    on either side of the block path's size threshold (9000 vertices with
+    ~14k edges: 234 KB, just past it), with and without a ``max_iters``
+    tail; columns past n (clamped in the out-hook only) included."""
+    from repro_torch.core.components import connected_components
+    from repro_torch.core.spmat import EllMatrix
+    from repro_torch.kernels.cc import ops as cc_ops
+
+    rng = np.random.default_rng(n + k_out)
+    cols = _cc_graph(rng, n, k_out, 0.2)
+    cols[rng.random(cols.shape) < 0.01] = n + 3  # out of range
+    cols = torch.from_numpy(cols).to(card)
+    m = int((cols >= 0).sum())
+    before = K.KERNELS["cc"].launches
+    lab, it, chunks = cc_ops.cc_components(cols, max_iters=max_iters)
+    assert K.KERNELS["cc"].launches == before + 1
+    want = _cc_plain_call(cols, max_iters)
+    assert torch.equal(lab, want[0]) and (it, chunks) == want[1:]
+    adj = EllMatrix(cols=cols, vals={}, n_cols=n)
+    assert torch.equal(connected_components(adj, max_iters=max_iters,
+                                            backend="cuda")[0], lab)
+    assert cc_ops.cc_path(n, m) == (
+        "block" if cc_ops.block_bytes(n, m) <= cc_ops.MAX_SHARED_BYTES
+        else "grid")
 
 
 def test_cc_launch_refused_or_bad_input_raises(card):
@@ -387,19 +530,27 @@ def test_cc_launch_refused_or_bad_input_raises(card):
     with pytest.raises(ValueError, match="rounds"):
         K.cc_rounds(oc, ic, lab, 0)
     before = K.KERNELS["cc"].launches
-    out, l1, l2 = (torch.empty_like(lab) for _ in range(3))
-    chg = torch.zeros((), dtype=torch.int32, device=card)
+    edges = torch.zeros((1, 2), dtype=torch.int32, device=card)
+    info = torch.zeros(3, dtype=torch.int32, device=card)
     with pytest.raises(RuntimeError, match="cc kernel launch failed"):
-        K.KERNELS["cc"].launch(oc.data_ptr(), ic.data_ptr(), out.data_ptr(),
-                               l1.data_ptr(), l2.data_ptr(), chg.data_ptr(),
-                               100, -1, 1, 2,
+        K.KERNELS["cc"].launch(edges.data_ptr(), 1, lab.data_ptr(),
+                               lab.data_ptr(), info.data_ptr(),
+                               info.data_ptr(), 100, 0, 1, 0, 0,
                                torch.cuda.current_stream().cuda_stream)
     assert K.KERNELS["cc"].launches == before
+    # the wrapper's mirror of the block path's shared memory
+    from repro_torch.kernels.cc import ops as cc_ops
+
+    size = K.KERNELS["cc"].entry("cc_block_bytes", [ctypes.c_int] * 2,
+                                 ctypes.c_longlong)
+    for n, m in ((1, 0), (8000, 2716), (8000, 12914), (1 << 17, 1 << 17)):
+        assert size(n, m) == cc_ops.block_bytes(n, m)
 
 
 def test_cc_launch_spans_on_card(card):
-    """On the card each launch of the cc kernel opens one ``kernel_launch``
-    span with JAX's kernel name, under the op's dispatch span."""
+    """On the card a ``connected_components`` call opens one
+    ``kernel_launch`` span with JAX's kernel name, under the op's dispatch
+    span, holding the rounds executed and the chunks of its one launch."""
     from repro_torch.core.components import connected_components
     from repro_torch.core.spmat import EllMatrix
     from repro_torch.obs import Tracer, tracing
@@ -412,10 +563,11 @@ def test_cc_launch_spans_on_card(card):
         connected_components(adj, backend="cuda", max_iters=21)
     (op,) = tr.roots
     assert op.name == "op:cc_labels" and op.attrs["backend"] == "cuda"
-    assert len(op.children) == K.KERNELS["cc"].launches - before == 3
-    assert [sp.attrs["rounds"] for sp in op.children] == [8, 8, 5]
-    assert {sp.name for sp in op.children} == {"kernel_launch"}
-    assert {sp.attrs["kernel"] for sp in op.children} == {"cc_labels"}
+    (sp,) = op.children
+    assert K.KERNELS["cc"].launches - before == 1
+    assert sp.name == "kernel_launch" and sp.attrs["kernel"] == "cc_labels"
+    assert (sp.attrs["rounds"], sp.attrs["chunks"]) == (21, 3)
+    assert sp.attrs["path"] == "block"
 
 
 def test_memory_source_follows_the_run_device(card):
