@@ -42,16 +42,22 @@ exit, no result line) on any check that does not hold:
              xdrop is held on both paths' launches: the gspmd run's first
              4096-pair chunk (both directions in one launch) and the
              shard_map run's one launch (its live pairs, both directions; a
-             variant), with each launch's steps per pair.  The gspmd run
+             variant), with each launch's steps per pair, and on 300 pairs
+             of that chunk at bands 300 and 1024 (the block instance).  The gspmd run
              must launch xdrop once per ``align_chunk`` block that holds a
              live pair, the shard_map run once, and the traced run must
              hold one ``kernel_launch`` span per launch.
-             spgemm is held on three inputs: the shard_map run's overlap
+             spgemm is held on five inputs: the shard_map run's overlap
              launch, the four stage panels rank (0, 0) of a 4×4 grid holds
-             (non-zero offsets) and the distributed TR's first launch; each
-             line gives the fullest row's live candidates, the shared
-             memory a block gets for them, the blocks an SM holds at it and
-             the instances' registers and spills;
+             (non-zero offsets), the distributed TR's first launch, and,
+             for both semirings, rows of 32768 live candidates (too full
+             for shared memory: the global instance); each line gives the
+             fullest row's live candidates, the shared memory a block gets
+             for them, the blocks an SM holds at it, the rows the global
+             instance took and the instances' registers and spills.
+             pileup is held on the consensus call, its time split into the
+             bin passes (two launches and a device cumsum) and the vote
+             launch;
 4b. cc     — ``connected_components(backend="cuda")`` on three inputs: the
              state graphs ``expand_states`` of phase 3's S (its launch
              counts, set to 0 just before, are the cc record's) and R, and
@@ -172,9 +178,9 @@ def _entry(mangled: str) -> str:
             j += 1
         k = int(body[i:j])
         name, i = body[j:j + k], j + k
-    args = re.match(r"I((?:Li\d+E)+)E", body[i:])
+    args = re.match(r"I((?:L[ib]\d+E)+)E", body[i:])
     if args:
-        name += "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+        name += "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
     return name
 
 
@@ -232,6 +238,7 @@ def main() -> None:
         from repro_torch.core.transitive_reduction import transitive_reduction
         from repro_torch.kernels.build import BUILD_LOG, build_all
         from repro_torch.kernels.cc import ops as cc_ops
+        from repro_torch.kernels.pileup import ops as pu_ops
         from repro_torch.kernels.spgemm import ops as sp_ops
         from repro_torch.obs import Tracer, tracing, write_chrome_trace
     except ImportError as e:
@@ -311,6 +318,9 @@ def main() -> None:
     for name in GSPMD_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched on the main path")
     # one x-drop launch (both directions) per align_chunk block of live pairs
+    # one consensus call: the two bin passes and the vote launch
+    check(launches["pileup"] == 3,
+          f"{launches['pileup']} pileup launches for one consensus call")
     live_chunks = -(-max(st["n_aligned"], 1) // cfg.align_chunk)
     check(launches["xdrop"] == live_chunks,
           f"{launches['xdrop']} xdrop launches for {st['n_aligned']} live pairs "
@@ -531,7 +541,7 @@ def main() -> None:
     records = []
 
     def record(name, got, want, kernel_fn, plain_fn, bytes_, ops, ops_rate,
-               plain_note=None, n_launches=None):
+               plain_note=None, n_launches=None, reps=5):
         err = 0
         for g, w in zip(got, want):
             check(g.shape == w.shape, f"{name}: shape {g.shape} vs {w.shape}")
@@ -542,7 +552,7 @@ def main() -> None:
                 err = max(err, float(diff.max()))
                 fail(f"{name}: kernel differs from its plain version "
                      f"(max abs err {err})")
-        ms = time_ms(kernel_fn, 5)
+        ms = time_ms(kernel_fn, reps)
         plain_ms = time_ms(plain_fn, 1)
         t_bytes = bytes_ / HBM_BYTES_S * 1e3
         t_ops = ops / ops_rate * 1e3
@@ -624,7 +634,30 @@ def main() -> None:
         **{k: sm_rec[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                   "bound_ms", "bound_by")},
         "steps": sm_stats}]
-    del cap_xdrop, cap_xdrop_sm, sm_rec, xa, sa
+    # bands past the one-warp instance (the block instance) on the chunk's
+    # first 300 pairs, both directions
+    wa = (xa[0][:300].contiguous(), *(t[:, :300].contiguous() for t in xa[1:4]),
+          xa[4][:300].contiguous(), *(t[:, :300].contiguous() for t in xa[5:8]))
+    for wide in (300, 1024):
+        wkw = {**xkw, "band": wide}
+        before = K.KERNELS["xdrop"].launches
+        got = K.xdrop_extend_batch(*wa, **wkw)
+        check(K.KERNELS["xdrop"].launches == before + 1,
+              f"xdrop band {wide}: not one launch")
+        want = K.xdrop_extend_batch_ref(*wa, **wkw)
+        for g, w in zip(got, want):
+            check(torch.equal(g, w),
+                  f"xdrop band {wide}: kernel differs from its plain version")
+        rec_x["variants"].append({
+            "input": f"gspmd chunk 0, first 300 pairs x 2 directions, band "
+                     f"{wide} (block instance)",
+            "max_abs_err": 0,
+            "ms": time_ms(lambda: K.xdrop_extend_batch(*wa, **wkw), 3),
+            "plain_ms": time_ms(lambda: K.xdrop_extend_batch_ref(*wa, **wkw),
+                                1)})
+        print(f"[kernels] xdrop {json.dumps(rec_x['variants'][-1])}",
+              flush=True)
+    del cap_xdrop, cap_xdrop_sm, sm_rec, xa, sa, wa
 
     # minplus: the first TR iteration's dense operand (R after BuildR)
     dense = res.r_graph.to_dense(minplus_orient_semiring)[MP].contiguous()
@@ -639,23 +672,43 @@ def main() -> None:
            plain_note=f"plain version on {rows} of {n} rows")
     del full, want
 
-    # pileup: the real consensus call
+    # pileup: the real consensus call, in three launches: the bin passes
+    # (count, device cumsum, fill) and the vote launch
     (draft, pieces, start, plen), kw = captured["consensus"][0]
     mdep = kw["min_depth"]
     got = K.pileup_vote(draft, pieces, start, plen, min_depth=mdep)
     want = K.pileup_vote_ref(draft, pieces, start, plen, min_depth=mdep)
     c, l = draft.shape
-    hi = torch.clamp(start + plen, max=l)
-    lo = torch.clamp(start, min=0)
+    m, lr = pieces.shape[1], pieces.shape[2]
+    lo, hi = pu_ops.vote_ranges(start, plen, l, lr)
     votes = int(torch.clamp(hi - lo, min=0).sum())
-    bytes_ = draft.numel() + pieces.numel() + 8 * start.numel() + 9 * c * l
-    ops = 34 * votes + 12 * c * l  # 8-wide coherence window + vote epilogue
-    print(f"[kernels] pileup: {c} contigs x {l} columns, {pieces.shape[1]} "
-          f"pieces of {pieces.shape[2]}, {votes} (column, piece) votes")
+    entries = int(pu_ops.tile_entries(start, plen, l, lr).sum())
+    tiles = c * -(-l // pu_ops.TILE)
+    # bytes: the draft, the piece bytes on vote columns, start and plen, the
+    # three outputs; operations: ~12 int32 a (column, piece) vote (its
+    # compare, the ballot and popcount of its window, the closed-form
+    # count of comparable positions, the gate and the count) and ~12 a
+    # column (the vote epilogue)
+    bytes_ = c * l + votes + 8 * start.numel() + 9 * c * l
+    ops = 12 * votes + 12 * c * l
+    print(f"[kernels] pileup: {c} contigs x {l} columns, {m} pieces of {lr}, "
+          f"{votes} (column, piece) votes; {tiles} tiles of "
+          f"{pu_ops.TILE} columns, {entries} list entries "
+          f"({entries / max(tiles, 1):.2f} pieces a tile)")
     record("pileup", got, want,
            lambda: K.pileup_vote(draft, pieces, start, plen, min_depth=mdep),
            lambda: K.pileup_vote_ref(draft, pieces, start, plen, min_depth=mdep),
-           bytes_, ops, I32_OPS_S)
+           bytes_, ops, I32_OPS_S, reps=50)
+    ends, slots = pu_ops.tile_lists(start, plen, l, lr)
+    records[-1].update({
+        "bins_ms": time_ms(lambda: pu_ops.tile_lists(start, plen, l, lr), 50),
+        "vote_ms": time_ms(lambda: pu_ops.vote_tiles(
+            draft, pieces, start, plen, ends, slots, min_depth=mdep), 50),
+        "tiles": tiles, "list_entries": entries, "votes": votes,
+        "ptxas": ptxas["pileup"]})
+    print(f"[kernels] pileup split: bins {records[-1]['bins_ms']:.6f} ms, "
+          f"vote {records[-1]['vote_ms']:.6f} ms", flush=True)
+    del ends, slots
 
     # spgemm: the shard_map run's overlap launch, rank (0, 0)'s four stage
     # panels on a 4x4 grid, and the distributed TR's first launch
@@ -703,6 +756,17 @@ def main() -> None:
         sr = kw["semiring"]
         inst = f"<{sp_ops.SEMIRINGS[sr.name]}>"
         v_max = launch.attrs["max_candidates"]
+        fit = sp_ops.fit_candidates(sp_ops.SEMIRINGS[sr.name], ka,
+                                    b_cols.shape[2])
+        # the rows routed to the global instance: those past `fit` (v counts
+        # the candidates before the min-plus zero products, so it bounds
+        # the min-plus routing from above)
+        n_global = launch.attrs["global_rows"]
+        routed = int(sp_ops.global_rows(v, fit).sum())
+        check(n_global == routed if sr.name == "overlap_pospair"
+              else n_global <= routed,
+              f"spgemm ({label}): {n_global} rows took the global instance, "
+              f"{routed} hold more than {fit} candidates")
         out = {
             "input": label, "stages": stages, "rows": n_a, "k_a": ka,
             "k_b": b_cols.shape[2], "candidates": int(n_cand),
@@ -713,10 +777,16 @@ def main() -> None:
             "max_candidates_per_row": v_max,
             "max_candidates_before_mul": int(v.max()),
             "shared_bytes_per_block": launch.attrs["shared_bytes"],
-            "blocks_per_sm": sp_ops.blocks_per_sm(sr, v_max, ka,
-                                                   b_cols.shape[2]),
+            "blocks_per_sm": sp_ops.blocks_per_sm(
+                sr, v_max if not n_global else fit, ka, b_cols.shape[2]),
+            # rows too full for shared memory: the global instance's rows,
+            # blocks and scratch
+            "global_rows": n_global,
+            "global_blocks": launch.attrs["global_blocks"],
+            "global_bytes": launch.attrs["global_bytes"],
             "ptxas": {k: ptxas["spgemm"].get(f"{k}{inst}") for k in (
-                "spgemm_count_kernel", "spgemm_stages_kernel")},
+                "spgemm_count_kernel", "spgemm_stages_kernel",
+                "spgemm_stages_global_kernel")},
             "max_abs_err": 0,  # exact: any difference failed above
             "ms": time_ms(lambda: K.spgemm_ring_stages(*args, **kw), 5),
             "plain_ms": time_ms(lambda: K.spgemm_ring_stages_ref(*args, **kw), 1),
@@ -752,6 +822,35 @@ def main() -> None:
     del a_g, b_g, a_sk, b_sk, a_p, b_p
     sp_s4 = spgemm_case("rank (0, 0) of a 4x4 grid, S = 4", args4, ov_kw)
     sp_tr = spgemm_case("dist TR first launch, min-plus orient", *cap_tr)
+    # rows of 32768 live candidates (K_A x K_B = 512 x 64, every slot live),
+    # too full for a block's shared memory: the global instance, both
+    # semirings, two stages, an empty row between full ones
+    g = torch.Generator().manual_seed(args.seed)
+    stages_f, n_f, nb_f, ka_f, kb_f = 2, 6, 128, 512, 64
+    offs_f = torch.arange(stages_f, dtype=torch.int32) * nb_f
+    a_cols_f = (torch.randint(0, nb_f, (stages_f, n_f, ka_f), generator=g,
+                              dtype=torch.int32) + offs_f[:, None, None])
+    a_cols_f[:, 2] = -1
+    b_cols_f = torch.randint(0, 4000, (stages_f, nb_f, kb_f), generator=g,
+                             dtype=torch.int32)
+    sp_full = []
+    for sr, shape in ((ov_kw["semiring"], ()), (minplus_orient_semiring, (4,))):
+        vals = [torch.randint(1, 900, c.shape + shape, generator=g,
+                              dtype=torch.int32) for c in (a_cols_f, b_cols_f)]
+        if shape:  # finite min-plus operands: no product is zero
+            vals = [{MP: v.float().cuda()} for v in vals]
+        else:
+            vals = [{"pos": v.cuda()} for v in vals]
+        args_f = (offs_f.cuda(), a_cols_f.cuda(), vals[0], b_cols_f.cuda(),
+                  vals[1])
+        kw_f = dict(semiring=sr, capacity=64, n_cols_out=4000)
+        sp_full.append(spgemm_case(
+            f"rows of {ka_f * kb_f} live candidates, {kw_f['semiring'].name}",
+            args_f, kw_f))
+        check(sp_full[-1]["global_rows"] == stages_f * (n_f - 1)
+              and sp_full[-1]["max_candidates_per_row"] == ka_f * kb_f,
+              f"spgemm global instance: {sp_full[-1]['global_rows']} rows")
+    del args_f, vals, a_cols_f, b_cols_f
     records.append({
         "name": "spgemm", "route": "cuda",
         "source": "src/repro_torch/csrc/spgemm.cu",
@@ -759,7 +858,7 @@ def main() -> None:
         "max_abs_err": 0,
         "ms": sp_main["ms"], "plain_ms": sp_main["plain_ms"],
         "bound_ms": sp_main["bound_ms"], "bound_by": sp_main["bound_by"],
-        "library_ms": None, "variants": [sp_s4, sp_tr],
+        "library_ms": None, "variants": [sp_s4, sp_tr, *sp_full],
     })
     del captured, cap_overlap, cap_tr, args4
     for op, fn in originals.items():

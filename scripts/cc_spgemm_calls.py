@@ -219,14 +219,25 @@ def measure(tree, genome_kb, seed):
                "ms": time_ms(lambda: K.spgemm_ring_stages(*args, **kw), 10)}
         if hasattr(sp_ops, "_COUNT_ARGS"):
             count = sp_ops.KERNEL.entry("spgemm_count", sp_ops._COUNT_ARGS)
-            maxes = torch.zeros(2, dtype=torch.int32, device=args[1].device)
             vals = [next(iter(v.values())) for v in (args[2], args[4])]
             ptrs = (args[0].data_ptr(), args[1].data_ptr(), vals[0].data_ptr(),
                     args[3].data_ptr(), vals[1].data_ptr())
             sr_id = sp_ops.SEMIRINGS[kw["semiring"].name]
+            i32 = dict(dtype=torch.int32, device=args[1].device)
+            if hasattr(sp_ops, "fit_candidates"):
+                # the count launch that also lists the rows too full for
+                # shared memory
+                maxes = torch.zeros(4, **i32)
+                full = torch.empty(args[1].shape[0] * args[1].shape[1], **i32)
+                outs = (maxes.data_ptr(), full.data_ptr(),
+                        sp_ops.fit_candidates(sr_id, args[1].shape[2],
+                                              args[3].shape[2]))
+            else:
+                maxes = torch.zeros(2, **i32)
+                outs = (maxes.data_ptr(),)
             rec["count_ms"] = time_ms(lambda: count(
-                sr_id, *ptrs, maxes.data_ptr(), *args[1].shape,
-                *args[3].shape[1:], stream_handle(args[1])), 10)
+                sr_id, *ptrs, *outs, *args[1].shape, *args[3].shape[1:],
+                stream_handle(args[1])), 10)
         out["spgemm"].append(rec)
     return out
 

@@ -32,8 +32,9 @@
 // are live):
 //   * spgemm_count_kernel (one block per row, the same walk as pass 1
 //     below) finds the launch's most live candidates in a row and its
-//     largest output column; the wrapper reads both once and sizes the
-//     main launch's shared memory from the first (blocks of 256 threads,
+//     largest output column, and lists the rows too full for shared
+//     memory; the wrapper reads the counts once and sizes the main
+//     launch's shared memory from the first (blocks of 256 threads,
 //     several to an SM) and its radix passes from the second;
 //   * the block first lists the row's live A slots (in range of the
 //     stage's B block) and the B rows they select in shared memory, so no
@@ -61,7 +62,16 @@
 //       warps' aggregates and the previous tile's carry) leaves each run's
 //       total at its last element;
 //     then a block scan of the kept runs ranks them and the first
-//     `capacity` are written.
+//     `capacity` are written;
+//   * a row whose candidates do not fit in a block's shared memory (more
+//     than `fit`, the wrapper's bound from MAX_SHARED) is not refused: the
+//     count launch appends its id to a list, the shared-memory instance
+//     returns from it after pass 1, and a second instance of the same row
+//     body (spgemm_stages_global_kernel, launched right after by the same
+//     call) keeps that row's candidate-sized buffers in a slice of global
+//     scratch per block instead, the radix counters still in shared
+//     memory, its blocks walking the list.  Same walk, same stable sort,
+//     same fold: the same bits, only slower.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -186,8 +196,7 @@ struct Row {
 __device__ __forceinline__ Row stage_row(const int* offsets, const int* a_cols,
                                          const void* a_vals, const int* b_cols,
                                          const void* b_vals, int n, int ka,
-                                         int nb, int kb) {
-  const int row = blockIdx.x, s = blockIdx.y;
+                                         int nb, int kb, int row, int s) {
   Row r;
   r.a_row = (static_cast<size_t>(s) * n + row) * ka;
   r.ac = a_cols + r.a_row;
@@ -306,8 +315,10 @@ __device__ __forceinline__ void for_units(const Row& r, const int* live_a,
   }
 }
 
-// The launch's most live candidates in a row, and its largest live output
-// column, by atomicMax into maxes[0] and maxes[1] (zeroed by the caller).
+// Per row of the launch, its live candidates: the most of the rows that
+// hold at most `fit` (maxes[0]) and of the rest (maxes[3]), the largest live
+// output column (maxes[1]), and the rest's ids (stage * n + row) appended
+// to full[] (their count in maxes[2]); maxes zeroed by the caller.
 // Dynamic shared memory: 2 ka ints (the live A slots and their B rows).
 template <int SR>
 __global__ void __launch_bounds__(THREADS)
@@ -315,8 +326,9 @@ spgemm_count_kernel(const int* __restrict__ offsets,
                     const int* __restrict__ a_cols,
                     const void* __restrict__ a_vals,
                     const int* __restrict__ b_cols,
-                    const void* __restrict__ b_vals, int* maxes, int n,
-                    int ka, int nb, int kb) {
+                    const void* __restrict__ b_vals, int* maxes,
+                    int* __restrict__ full, int fit, int n, int ka, int nb,
+                    int kb) {
   using P = typename Pay<SR>::T;
   extern __shared__ int live_a[];
   __shared__ int scan[WARPS], total, cmax_all;
@@ -325,7 +337,7 @@ spgemm_count_kernel(const int* __restrict__ offsets,
     cmax_all = -1;
   }
   const Row r = stage_row(offsets, a_cols, a_vals, b_cols, b_vals, n, ka, nb,
-                          kb);
+                          kb, blockIdx.x, blockIdx.y);
   int* live_br = live_a + ka;
   const int n_live = stage_live(r, ka, live_a, live_br, scan);
   int sum = 0, cmax = -1;
@@ -341,34 +353,62 @@ spgemm_count_kernel(const int* __restrict__ offsets,
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    atomicMax(maxes, total);
+    if (total > fit) {
+      full[atomicAdd(maxes + 2, 1)] = blockIdx.y * n + blockIdx.x;
+      atomicMax(maxes + 3, total);
+    } else {
+      atomicMax(maxes, total);
+    }
     atomicMax(maxes + 1, cmax_all);
   }
 }
 
-template <int SR>
-__global__ void __launch_bounds__(THREADS)
-spgemm_stages_kernel(const int* __restrict__ offsets,
-                     const int* __restrict__ a_cols,
-                     const void* __restrict__ a_vals,
-                     const int* __restrict__ b_cols,
-                     const void* __restrict__ b_vals,
-                     int* __restrict__ out_cols, void* __restrict__ out0,
-                     int* __restrict__ out_apos, int* __restrict__ out_bpos,
-                     int* __restrict__ overflow, int n, int ka, int nb, int kb,
-                     int cap, int vcap, int col_bits) {
+// Where a row's buffers live: in the shared-memory instance all of them
+// in the block's dynamic shared memory (`layout`); in the global instance
+// the candidate-sized ones (operands, columns, the two permutations, the
+// live A slots, the unit offsets) in the block's slice of a global scratch
+// buffer, the radix counters and the scan scratch in shared memory.
+struct Bufs {
+  void* pay;
+  int *cols, *perm0, *perm1, *live_a, *live_br, *u_off;
+  unsigned* digits;
+  int* scratch;
+};
+
+__device__ __forceinline__ Bufs row_bufs(unsigned char* base, const Layout& lay,
+                                         unsigned* digits, int* scratch) {
+  Bufs b;
+  b.pay = base + lay.pay;
+  b.cols = reinterpret_cast<int*>(base + lay.cols);
+  b.perm0 = reinterpret_cast<int*>(base + lay.perm0);
+  b.perm1 = reinterpret_cast<int*>(base + lay.perm1);
+  b.live_a = reinterpret_cast<int*>(base + lay.live_a);
+  b.live_br = reinterpret_cast<int*>(base + lay.live_br);
+  b.u_off = reinterpret_cast<int*>(base + lay.u_off);
+  b.digits = digits;
+  b.scratch = scratch;
+  return b;
+}
+
+// One stage row, start to end, by the whole block: `vcap` candidates fit
+// in its buffers.  With FIT_ONLY, a row holding more than `vcap` returns
+// after pass 1 and writes nothing: the global instance computes it.
+template <int SR, bool FIT_ONLY>
+__device__ __forceinline__ void stage_multiply(
+    const Row& r, const Bufs& bf, size_t out_row, int* __restrict__ out_cols,
+    void* __restrict__ out0, int* __restrict__ out_apos,
+    int* __restrict__ out_bpos, int* __restrict__ overflow, int ka, int kb,
+    int cap, int vcap, int col_bits) {
   using P = typename Pay<SR>::T;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay = layout(SR, vcap, ka, kb);
-  P* pay = reinterpret_cast<P*>(smem + lay.pay);
-  int* cols = reinterpret_cast<int*>(smem + lay.cols);
-  int* perm0 = reinterpret_cast<int*>(smem + lay.perm0);
-  int* perm1 = reinterpret_cast<int*>(smem + lay.perm1);
-  int* live_a = reinterpret_cast<int*>(smem + lay.live_a);
-  int* live_br = reinterpret_cast<int*>(smem + lay.live_br);
-  int* u_off = reinterpret_cast<int*>(smem + lay.u_off);
-  unsigned* digits = reinterpret_cast<unsigned*>(smem + lay.digits);
-  int* scratch = reinterpret_cast<int*>(smem + lay.scratch);
+  P* pay = reinterpret_cast<P*>(bf.pay);
+  int* cols = bf.cols;
+  int* perm0 = bf.perm0;
+  int* perm1 = bf.perm1;
+  int* live_a = bf.live_a;
+  int* live_br = bf.live_br;
+  int* u_off = bf.u_off;
+  unsigned* digits = bf.digits;
+  int* scratch = bf.scratch;
   // scratch: [0, 16) block_scan; MINPLUS: [16, 48) the warps' aggregates
   // (8 float4), [48, 52) the carry into the next tile, [56, 64) the warps'
   // head flags
@@ -376,8 +416,6 @@ spgemm_stages_kernel(const int* __restrict__ offsets,
   int* w_f = scratch + 56;
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const Row r = stage_row(offsets, a_cols, a_vals, b_cols, b_vals, n, ka, nb,
-                          kb);
 
   // --- 1. live candidates per unit, their places in candidate order ---
   const int n_live = stage_live(r, ka, live_a, live_br, scratch);
@@ -395,7 +433,8 @@ spgemm_stages_kernel(const int* __restrict__ offsets,
     if (i < units) u_off[i] = v_total + ex;
     v_total += tile;
   }
-  const int V = min(v_total, vcap);
+  if (FIT_ONLY && v_total > vcap) return;  // uniform: a block-scan total
+  const int V = v_total;
   __syncthreads();
 
   // --- 2. the candidates, in candidate order ---
@@ -455,7 +494,6 @@ spgemm_stages_kernel(const int* __restrict__ offsets,
   const int* srt = src;
 
   // --- 4. fold the runs, rank the kept ones, compact to `cap` ---
-  const size_t out_row = (static_cast<size_t>(blockIdx.y) * n + blockIdx.x) * cap;
   int kept_total = 0;
   float4 carry = inf4();  // MINPLUS: the open run's value so far
   for (int base = 0; base < V; base += THREADS) {
@@ -544,6 +582,69 @@ spgemm_stages_kernel(const int* __restrict__ offsets,
   if (tid == 0 && kept_total > cap) atomicAdd(overflow, kept_total - cap);
 }
 
+// The shared-memory instance: one block per (row, stage), every buffer in
+// dynamic shared memory sized for `vcap` candidates; rows holding more
+// return after pass 1.
+template <int SR>
+__global__ void __launch_bounds__(THREADS)
+spgemm_stages_kernel(const int* __restrict__ offsets,
+                     const int* __restrict__ a_cols,
+                     const void* __restrict__ a_vals,
+                     const int* __restrict__ b_cols,
+                     const void* __restrict__ b_vals,
+                     int* __restrict__ out_cols, void* __restrict__ out0,
+                     int* __restrict__ out_apos, int* __restrict__ out_bpos,
+                     int* __restrict__ overflow, int n, int ka, int nb, int kb,
+                     int cap, int vcap, int col_bits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout lay = layout(SR, vcap, ka, kb);
+  const Bufs bf = row_bufs(smem, lay,
+                           reinterpret_cast<unsigned*>(smem + lay.digits),
+                           reinterpret_cast<int*>(smem + lay.scratch));
+  const Row r = stage_row(offsets, a_cols, a_vals, b_cols, b_vals, n, ka, nb,
+                          kb, blockIdx.x, blockIdx.y);
+  const size_t out_row =
+      (static_cast<size_t>(blockIdx.y) * n + blockIdx.x) * cap;
+  stage_multiply<SR, true>(r, bf, out_row, out_cols, out0, out_apos, out_bpos,
+                           overflow, ka, kb, cap, vcap, col_bits);
+}
+
+// The global instance: the rows too full for a block's shared memory
+// (full[0 .. n_full), ids stage * n + row), a block each at a time, the
+// grid walking the list; block b's candidate-sized buffers are the
+// `lay.digits` bytes at gscratch + b * lay.digits.
+template <int SR>
+__global__ void __launch_bounds__(THREADS)
+spgemm_stages_global_kernel(const int* __restrict__ offsets,
+                            const int* __restrict__ a_cols,
+                            const void* __restrict__ a_vals,
+                            const int* __restrict__ b_cols,
+                            const void* __restrict__ b_vals,
+                            int* __restrict__ out_cols, void* __restrict__ out0,
+                            int* __restrict__ out_apos,
+                            int* __restrict__ out_bpos,
+                            int* __restrict__ overflow,
+                            const int* __restrict__ full, int n_full,
+                            unsigned char* __restrict__ gscratch, int n,
+                            int ka, int nb, int kb, int cap, int vcap,
+                            int col_bits) {
+  __shared__ unsigned digits[RADIX * THREADS + RADIX * THREADS / 32];
+  __shared__ __align__(16) int scratch[64];
+  const Layout lay = layout(SR, vcap, ka, kb);
+  const Bufs bf = row_bufs(gscratch + blockIdx.x * lay.digits, lay, digits,
+                           scratch);
+  for (int q = blockIdx.x; q < n_full; q += gridDim.x) {
+    const int id = full[q];
+    const int s = id / n, row = id - s * n;
+    const Row r = stage_row(offsets, a_cols, a_vals, b_cols, b_vals, n, ka,
+                            nb, kb, row, s);
+    stage_multiply<SR, false>(r, bf, static_cast<size_t>(id) * cap, out_cols,
+                              out0, out_apos, out_bpos, overflow, ka, kb, cap,
+                              vcap, col_bits);
+    __syncthreads();  // the buffers are the next row's
+  }
+}
+
 template <int SR>
 cudaError_t set_shared(size_t shmem) {
   if (shmem > static_cast<size_t>(MAX_SHARED)) return cudaErrorInvalidValue;
@@ -582,21 +683,24 @@ extern "C" int spgemm_blocks_per_sm(int semiring, int vcap, int ka, int kb,
   return static_cast<int>(err);
 }
 
-// The launch's most live candidates in a row and largest live output
-// column, into maxes[0..1] (two ints, zeroed by the caller).
+// Per row, the live candidates; the most of the rows that fit (at most
+// `fit`) and of the rest, the largest live output column, and the rest's
+// ids in full[] (room for stages * n): see spgemm_count_kernel.
 extern "C" int spgemm_count(int semiring, const void* offsets,
                             const void* a_cols, const void* a_vals,
                             const void* b_cols, const void* b_vals,
-                            void* maxes, int stages, int n, int ka, int nb,
-                            int kb, void* stream) {
+                            void* maxes, void* full, int fit, int stages,
+                            int n, int ka, int nb, int kb, void* stream) {
   if (stages <= 0 || n <= 0) return 0;
-  if (ka < 0 || ka > MAX_SHARED / 8 - 64)
+  if (ka < 0 || ka > MAX_SHARED / 8 - 64 ||
+      static_cast<long long>(stages) * n > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   const auto* off = static_cast<const int*>(offsets);
   const auto* ac = static_cast<const int*>(a_cols);
   const auto* bc = static_cast<const int*>(b_cols);
   auto* mx = static_cast<int*>(maxes);
+  auto* fl = static_cast<int*>(full);
   const dim3 grid(n, stages);
   const int shmem = 8 * ka;  // the live A slots and their B rows
   cudaError_t err;
@@ -606,31 +710,74 @@ extern "C" int spgemm_count(int semiring, const void* offsets,
                                shmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     spgemm_count_kernel<OVERLAP><<<grid, THREADS, shmem, st>>>(
-        off, ac, a_vals, bc, b_vals, mx, n, ka, nb, kb);
+        off, ac, a_vals, bc, b_vals, mx, fl, fit, n, ka, nb, kb);
   } else if (semiring == MINPLUS) {
     err = cudaFuncSetAttribute(spgemm_count_kernel<MINPLUS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                shmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     spgemm_count_kernel<MINPLUS><<<grid, THREADS, shmem, st>>>(
-        off, ac, a_vals, bc, b_vals, mx, n, ka, nb, kb);
+        off, ac, a_vals, bc, b_vals, mx, fl, fit, n, ka, nb, kb);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The main launch: `vcap` candidates a block (>= the launch's most in a
-// row), `col_bits` the bit width of its largest output column.
+namespace {
+
+template <int SR>
+cudaError_t launch_instances(const int* off, const int* ac, const void* av,
+                             const int* bc, const void* bv, int* oc,
+                             void* out0, int* out1, int* out2, int* ovf,
+                             const int* full, int n_full, void* gscratch,
+                             int g_blocks, int stages, int n, int ka, int nb,
+                             int kb, int cap, int vcap, int vcap_g,
+                             int col_bits, cudaStream_t st) {
+  if (vcap > 0) {
+    const size_t shmem = layout(SR, vcap, ka, kb).total;
+    const cudaError_t err = set_shared<SR>(shmem);
+    if (err != cudaSuccess) return err;
+    spgemm_stages_kernel<SR><<<dim3(n, stages), THREADS, shmem, st>>>(
+        off, ac, av, bc, bv, oc, out0, out1, out2, ovf, n, ka, nb, kb, cap,
+        vcap, col_bits);
+  }
+  if (n_full > 0) {
+    spgemm_stages_global_kernel<SR><<<g_blocks, THREADS, 0, st>>>(
+        off, ac, av, bc, bv, oc, out0, out1, out2, ovf, full, n_full,
+        static_cast<unsigned char*>(gscratch), n, ka, nb, kb, cap, vcap_g,
+        col_bits);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Bytes of global scratch one block of the global instance uses for
+// `vcap` candidates (its candidate-sized buffers).
+extern "C" long long spgemm_global_bytes(int semiring, int vcap, int ka,
+                                         int kb) {
+  return static_cast<long long>(layout(semiring, vcap, ka, kb).digits);
+}
+
+// The main launch: the shared-memory instance over every (row, stage),
+// `vcap` candidates a block (0: no row fits, no launch), and, when n_full
+// rows are too full for it (their ids in full[]), the global instance in
+// g_blocks blocks of `vcap_g` candidates each, their buffers in gscratch
+// (g_blocks * spgemm_global_bytes(semiring, vcap_g, ka, kb) bytes);
+// `col_bits` is the bit width of the largest output column.
 extern "C" int spgemm_launch(int semiring, const void* offsets,
                              const void* a_cols, const void* a_vals,
                              const void* b_cols, const void* b_vals,
                              void* out_cols, void* out0, void* out1,
-                             void* out2, void* overflow, int stages, int n,
-                             int ka, int nb, int kb, int cap, int vcap,
-                             int col_bits, void* stream) {
+                             void* out2, void* overflow, const void* full,
+                             int n_full, void* gscratch, int g_blocks,
+                             int vcap_g, int stages, int n, int ka, int nb,
+                             int kb, int cap, int vcap, int col_bits,
+                             void* stream) {
   if (stages <= 0 || n <= 0) return 0;
-  if (vcap < 0 || cap < 1 || col_bits < 0 || col_bits > 31)
+  if (vcap < 0 || cap < 1 || col_bits < 0 || col_bits > 31 || n_full < 0 ||
+      (n_full > 0 && (g_blocks < 1 || vcap_g < 0 || gscratch == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   const auto* off = static_cast<const int*>(offsets);
@@ -638,25 +785,22 @@ extern "C" int spgemm_launch(int semiring, const void* offsets,
   const auto* bc = static_cast<const int*>(b_cols);
   auto* oc = static_cast<int*>(out_cols);
   auto* ovf = static_cast<int*>(overflow);
-  const size_t shmem = layout(semiring, vcap, ka, kb).total;
-  const dim3 grid(n, stages);
+  const auto* fl = static_cast<const int*>(full);
   cudaError_t err;
   if (semiring == OVERLAP) {
-    err = set_shared<OVERLAP>(shmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    spgemm_stages_kernel<OVERLAP><<<grid, THREADS, shmem, st>>>(
+    err = launch_instances<OVERLAP>(
         off, ac, a_vals, bc, b_vals, oc, out0, static_cast<int*>(out1),
-        static_cast<int*>(out2), ovf, n, ka, nb, kb, cap, vcap, col_bits);
+        static_cast<int*>(out2), ovf, fl, n_full, gscratch, g_blocks, stages,
+        n, ka, nb, kb, cap, vcap, vcap_g, col_bits, st);
   } else if (semiring == MINPLUS) {
-    err = set_shared<MINPLUS>(shmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    spgemm_stages_kernel<MINPLUS><<<grid, THREADS, shmem, st>>>(
-        off, ac, a_vals, bc, b_vals, oc, out0, nullptr, nullptr, ovf, n, ka,
-        nb, kb, cap, vcap, col_bits);
+    err = launch_instances<MINPLUS>(
+        off, ac, a_vals, bc, b_vals, oc, out0, nullptr, nullptr, ovf, fl,
+        n_full, gscratch, g_blocks, stages, n, ka, nb, kb, cap, vcap, vcap_g,
+        col_bits, st);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 extern "C" const char* spgemm_error_string(int code) {

@@ -46,6 +46,16 @@
 // * A pair stops when no cell is alive or at min(max_steps, la + lb - 1).
 // * D directions over the same rows run in one launch: pair w reads row
 //   w % rows of a and b.
+// * Bands above 256 (more than 4 cells a lane) run xdrop_wide_kernel: one
+//   block of WIDE_THREADS per pair, every band cell d a step (WIDE_THREADS
+//   apart a thread), H[s-2] and H[s-1] in two rows of `band` ints that
+//   step s overwrites in place (dynamic shared memory, or a global scratch
+//   row pair per block past WIDE_MAX_SHARED bytes), bases read from the
+//   sequences directly, and the step maximum with its lowest offset d as
+//   one 64-bit key (score * 2^32 + band - 1 - d) reduced by warp
+//   shuffles and across warps through double-buffered shared slots: one
+//   __syncthreads a step.  It serves bands the one-warp instance cannot
+//   hold in registers; it is right, not fast.
 // * Longest first: warp k runs pair order[k], an order by min(la, lb)
 //   descending.  The work of a pair follows the shorter text, so the
 //   longest chains start in the first wave of warps and the launch does not
@@ -313,7 +323,104 @@ xdrop_kernel(const uint8_t* __restrict__ a, int lda,
   }
 }
 
+constexpr int WIDE_THREADS = 256;
+constexpr int WIDE_WARPS = WIDE_THREADS / 32;
+// the wide instance keeps its two rows in shared memory up to this size,
+// else in global scratch (WIDE_GRID blocks, each looping over pairs)
+constexpr int WIDE_MAX_SHARED = 200 * 1024;
+constexpr int WIDE_GRID = 512;
+// a step's key: score * KEY_SCALE + (band - 1 - d), so the maximum key is
+// the best score at its lowest offset d
+constexpr long long KEY_SCALE = 1LL << 32;
+
+// One pair a block (looping over pairs when hbuf is given): the oracle's
+// step, every cell of the band, no parity compaction.
+__global__ void __launch_bounds__(WIDE_THREADS)
+xdrop_wide_kernel(const uint8_t* __restrict__ a, int lda,
+                  const int* __restrict__ base_a, const int* __restrict__ step_a,
+                  const int* __restrict__ len_a,
+                  const uint8_t* __restrict__ b, int ldb,
+                  const int* __restrict__ base_b, const int* __restrict__ step_b,
+                  const int* __restrict__ len_b,
+                  const int* __restrict__ order, int rows, int pairs, int band,
+                  int max_steps, int xdrop, int match, int mismatch, int gap,
+                  int* __restrict__ score, int* __restrict__ ai_out,
+                  int* __restrict__ bj_out, int* __restrict__ hbuf) {
+  extern __shared__ int h_shared[];
+  __shared__ long long wkey[2][WIDE_WARPS];
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  int* h0 = hbuf ? hbuf + static_cast<size_t>(blockIdx.x) * 2 * band
+                 : h_shared;
+  int* h1 = h0 + band;
+  const int c = band >> 1;
+  for (int k = blockIdx.x; k < pairs; k += gridDim.x) {
+    const int pair = order[k];
+    const int row = pair % rows;
+    const Walk wa{a + (size_t)row * lda, lda, base_a[pair], step_a[pair]};
+    const Walk wb{b + (size_t)row * ldb, ldb, base_b[pair], step_b[pair]};
+    const int la = len_a[pair], lb = len_b[pair];
+    const int limit = min(max_steps, la + lb - 1);
+    for (int d = tid; d < band; d += WIDE_THREADS) {
+      h0[d] = d == c ? 0 : NEG;  // H[-2]: the virtual origin
+      h1[d] = NEG;               // H[-1]
+    }
+    __syncthreads();
+    int best = 0, bi = 0, bj = 0;
+    for (int s = 0; s < limit; ++s) {
+      int* hx = (s & 1) ? h1 : h0;  // H[s-2], overwritten by H[s]
+      const int* hy = (s & 1) ? h0 : h1;  // H[s-1]
+      const int thr = best - xdrop;
+      long long key = LLONG_MIN;
+      for (int d = tid; d < band; d += WIDE_THREADS) {
+        const int off = d - c;
+        const int i = (s + off) >> 1, j = (s - off) >> 1;
+        int h = NEG;
+        if (((s + off) & 1) == 0 && i >= 0 && i < la && j >= 0 && j < lb) {
+          const int sub = wa.at(i) == wb.at(j) ? match : mismatch;
+          const int up = (d > 0 ? hy[d - 1] : NEG) + gap;
+          const int left = (d < band - 1 ? hy[d + 1] : NEG) + gap;
+          h = max(hx[d] + sub, max(up, left));
+          if (h < thr) h = NEG;
+        }
+        hx[d] = h;
+        key = max(key, static_cast<long long>(h) * KEY_SCALE + (band - 1 - d));
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        key = max(key, __shfl_xor_sync(FULL, key, o));
+      if (lane == 0) wkey[s & 1][w] = key;
+      __syncthreads();
+      key = wkey[s & 1][0];
+#pragma unroll
+      for (int u = 1; u < WIDE_WARPS; ++u) key = max(key, wkey[s & 1][u]);
+      const long long low = key & (KEY_SCALE - 1);  // band - 1 - d
+      const int m = static_cast<int>((key - low) / KEY_SCALE);
+      if (m <= NEG) break;  // no cell alive (uniform across the block)
+      if (m > best) {
+        const int d = band - 1 - static_cast<int>(low);
+        const int i = (s + d - c) >> 1;
+        best = m;
+        bi = i + 1;
+        bj = s - i + 1;
+      }
+    }
+    if (tid == 0) {
+      score[pair] = best;
+      ai_out[pair] = bi;
+      bj_out[pair] = bj;
+    }
+    __syncthreads();  // the rows and key slots are reused by the next pair
+  }
+}
+
 }  // namespace
+
+// Bytes of global scratch the launch needs for `band` (0: the rows fit
+// in shared memory).
+extern "C" long long xdrop_scratch_bytes(int band) {
+  if (band <= 256 || 8LL * band <= WIDE_MAX_SHARED) return 0;
+  return 8LL * band * WIDE_GRID;
+}
 
 extern "C" int xdrop_launch(const void* a, int lda, const void* base_a,
                             const void* step_a, const void* len_a,
@@ -322,16 +429,36 @@ extern "C" int xdrop_launch(const void* a, int lda, const void* base_a,
                             void* order, int rows, int pairs, int band,
                             int max_steps, int xdrop,
                             int match, int mismatch, int gap, void* score,
-                            void* ai, void* bj, void* stream) {
+                            void* ai, void* bj, void* scratch, void* stream) {
   if (pairs <= 0) return 0;
-  if (rows <= 0 || lda <= 0 || ldb <= 0 || band < 1 || band > 256)
+  if (rows <= 0 || lda <= 0 || ldb <= 0 || band < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int r = ((band + 1) / 2 + 31) / 32;  // cells of the larger parity
-  const int p0 = (band / 2) & 1;
-  dim3 grid((pairs + WARPS - 1) / WARPS), block(32 * WARPS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   order_kernel<<<1, ORDER_THREADS, 0, st>>>(
       (const int*)len_a, (const int*)len_b, pairs, (int*)order);
+  if (band > 256) {
+    const bool global = xdrop_scratch_bytes(band) > 0;
+    if (global && scratch == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t shmem = global ? 0 : 8 * static_cast<size_t>(band);
+    if (shmem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          xdrop_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(shmem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const int grid = global ? min(pairs, WIDE_GRID) : pairs;
+    xdrop_wide_kernel<<<grid, WIDE_THREADS, shmem, st>>>(
+        (const uint8_t*)a, lda, (const int*)base_a, (const int*)step_a,
+        (const int*)len_a, (const uint8_t*)b, ldb, (const int*)base_b,
+        (const int*)step_b, (const int*)len_b, (const int*)order, rows, pairs,
+        band, max_steps, xdrop, match, mismatch, gap, (int*)score, (int*)ai,
+        (int*)bj, global ? (int*)scratch : nullptr);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int r = ((band + 1) / 2 + 31) / 32;  // cells of the larger parity
+  const int p0 = (band / 2) & 1;
+  dim3 grid((pairs + WARPS - 1) / WARPS), block(32 * WARPS);
 #define XDROP_CASE(R, P0)                                                    \
   case 2 * R + P0:                                                           \
     xdrop_kernel<R, P0><<<grid, block, 0, st>>>(                             \

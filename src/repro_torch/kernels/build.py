@@ -116,6 +116,7 @@ class CudaKernel:
         self._fn = None
         self._err = None
         self._lib = None
+        self._entries = {}
 
     def _load(self):
         if self._fn is None:
@@ -132,11 +133,15 @@ class CudaKernel:
 
     def entry(self, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
         """Another C function of the kernel's library (a helper launch or a
-        query); calling it counts no launch."""
-        self._load()
-        fn = getattr(self._lib, symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = restype
+        query); calling it counts no launch (passing it to :meth:`launch`
+        does).  Bound once per symbol."""
+        fn = self._entries.get(symbol)
+        if fn is None:
+            self._load()
+            fn = getattr(self._lib, symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = restype
+            self._entries[symbol] = fn
         return fn
 
     def check(self, code: int, what: str) -> None:
@@ -146,9 +151,12 @@ class CudaKernel:
             raise RuntimeError(f"{self.name} {what} failed: {msg} "
                                f"(cudaError {code})")
 
-    def launch(self, *args) -> None:
-        """Launch on the current stream; raise on a refused launch."""
-        self.check(self._load()(*args), "kernel launch")
+    def launch(self, *args, entry=None) -> None:
+        """Launch on the current stream; raise on a refused launch.
+        ``entry`` (from :meth:`entry`) launches another kernel of the
+        library instead of ``<name>_launch``, and counts it the same."""
+        fn = self._load() if entry is None else entry
+        self.check(fn(*args), "kernel launch")
         self.launches += 1
 
 

@@ -2,7 +2,8 @@
 
 ``xdrop_extend_batch`` launches the CUDA kernel for CUDA tensors and runs
 the plain version (``ref.py``) for CPU tensors; a CUDA request it cannot
-launch raises.  Both backends of the ``xdrop_extend`` op share one
+launch raises.  Any band >= 1 runs: up to :data:`WARP_BAND` the one-warp
+instance, above it the block instance (``csrc/xdrop.cu``).  Both backends of the ``xdrop_extend`` op share one
 signature: the walks (bases, steps, lengths) are ``(E,)`` for one
 direction or ``(D, E)`` for ``D`` directions over the same rows of ``a``
 and ``b``, which one launch runs as ``D · E`` pairs.
@@ -25,9 +26,25 @@ KERNEL = CudaKernel("xdrop", [
     _P, _I, _P, _P, _P,  # b, ldb, base_b, step_b, len_b
     _P, _I, _I,  # order (scratch, written by the launch), rows, pairs
     _I, _I, _I, _I, _I, _I,  # band, max_steps, xdrop, match, mismatch, gap
-    _P, _P, _P, _P,  # score, ai, bj, stream
+    _P, _P, _P, _P, _P,  # score, ai, bj, scratch, stream
 ])
-MAX_BAND = 256  # 128 cells of one parity: 4 per lane
+#: the widest band of the one-warp instance (128 cells of one parity: 4 a
+#: lane); wider bands run the block instance
+WARP_BAND = 256
+#: the block instance keeps its two rows of ``band`` ints in shared memory
+#: up to this many bytes, else in global scratch for its WIDE_GRID blocks
+#: (``csrc/xdrop.cu``)
+WIDE_MAX_SHARED = 200 * 1024
+WIDE_GRID = 512
+
+
+def scratch_bytes(band: int) -> int:
+    """Global scratch a launch at ``band`` needs (``csrc/xdrop.cu:
+    xdrop_scratch_bytes``): the block instance's rows where they do not fit
+    in shared memory, else 0."""
+    if band <= WARP_BAND or 8 * band <= WIDE_MAX_SHARED:
+        return 0
+    return 8 * band * WIDE_GRID
 
 
 def xdrop_extend_batch(a, base_a, step_a, len_a, b, base_b, step_b, len_b, *,
@@ -50,22 +67,28 @@ def xdrop_extend_batch(a, base_a, step_a, len_a, b, base_b, step_b, len_b, *,
         check_dtype("xdrop", args[key], torch.uint8, key)
     for key in ("base_a", "step_a", "len_a", "base_b", "step_b", "len_b"):
         check_dtype("xdrop", args[key], torch.int32, key)
-    if not 1 <= band <= MAX_BAND:
-        raise ValueError(f"xdrop: band must be in [1, {MAX_BAND}], got {band}")
+    if band < 1:
+        raise ValueError(f"xdrop: band must be >= 1, got {band}")
     score, ai, bj = (torch.empty(shape, dtype=torch.int32, device=dev)
                      for _ in range(3))
     pairs = score.numel()
     if pairs == 0:
         return score, ai, bj
     order = torch.empty(pairs, dtype=torch.int32, device=dev)  # scratch
+    # the block instance's rows, where they do not fit in shared memory
+    rows_bytes = scratch_bytes(band)
+    rows = torch.empty(rows_bytes, dtype=torch.uint8, device=dev) \
+        if rows_bytes else None
     with span("kernel_launch", kind="kernel", kernel="xdrop_extend",
-              pairs=pairs):
+              pairs=pairs, band=band,
+              instance="warp" if band <= WARP_BAND else "block"):
         KERNEL.launch(
             a.data_ptr(), a.shape[1], base_a.data_ptr(), step_a.data_ptr(),
             len_a.data_ptr(), b.data_ptr(), b.shape[1], base_b.data_ptr(),
             step_b.data_ptr(), len_b.data_ptr(), order.data_ptr(), a.shape[0],
             pairs, band, max_steps, xdrop, match, mismatch, gap,
-            score.data_ptr(), ai.data_ptr(), bj.data_ptr(), stream_handle(a),
+            score.data_ptr(), ai.data_ptr(), bj.data_ptr(),
+            rows.data_ptr() if rows is not None else None, stream_handle(a),
         )
     return score, ai, bj
 

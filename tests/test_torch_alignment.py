@@ -62,6 +62,41 @@ def test_xdrop_module_matches_pallas_and_oracle(e, la, lb, band, direction,
         np.testing.assert_array_equal(r.numpy(), np.asarray(o))
 
 
+@pytest.mark.parametrize("band", [257, 300, 513])
+@pytest.mark.parametrize("direction", [1, -1])
+def test_xdrop_wide_bands_match_pallas_and_oracle(band, direction):
+    """Bands past the card's one-warp instance (256): the plain version
+    equals JAX's Pallas kernel (interpret) and oracle, on pairs whose
+    result depends on cells far off the diagonal (unequal lengths, free
+    gaps, an x-drop that keeps the whole band alive)."""
+    rng = np.random.default_rng(band + direction)
+    e, la, lb = 5, 260, 150
+    a, b = _pairs(rng, e, la, lb, 0.1)
+    b[:2] = rng.integers(0, 4, (2, lb))  # unrelated pairs
+    lens_a = rng.integers(la // 2, la + 1, e).astype(np.int32)
+    lens_b = rng.integers(lb // 2, lb + 1, e).astype(np.int32)
+    if direction == 1:
+        base_a, base_b = np.zeros(e, np.int32), np.zeros(e, np.int32)
+    else:
+        base_a, base_b = lens_a - 1, lens_b - 1
+    step = np.full(e, direction, np.int32)
+    np_args = (a, base_a, step, lens_a, b, base_b, step, lens_b)
+    kw = dict(band=band, max_steps=la + lb, xdrop=400, match=2, mismatch=-1,
+              gap=0)
+    pal = xdrop_pallas(*map(jnp.asarray, np_args), pairs_per_block=e,
+                       interpret=True, **kw)
+    orc = j_xdrop_ref(*map(jnp.asarray, np_args), **kw)
+    got = xdrop_extend_batch(*[torch.from_numpy(x) for x in np_args], **kw)
+    for p, o, g in zip(pal, orc, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(p))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(o))
+    # the band's width decides the result: the main path's band gives
+    # another
+    narrow = xdrop_extend_batch(*[torch.from_numpy(x) for x in np_args],
+                                **{**kw, "band": 65})
+    assert any(not torch.equal(g, n) for g, n in zip(got, narrow))
+
+
 def test_xdrop_max_steps_cap_and_single_pair():
     rng = np.random.default_rng(9)
     a, b = _pairs(rng, 3, 120, 120, 0.02)

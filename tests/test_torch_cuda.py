@@ -21,6 +21,8 @@ from repro_torch.core.semiring import (
 )
 from repro_torch.kernels.spgemm import ops as tops
 
+import _pileup_cases
+
 pytestmark = pytest.mark.cuda
 
 
@@ -92,6 +94,34 @@ def test_xdrop_kernel_every_register_count_and_parity(card, band):
         _xdrop_same(card, args, band=band, max_steps=4096, xdrop=30)
 
 
+@pytest.mark.parametrize("band", [257, 300, 512, 513, 1024, 26000])
+def test_xdrop_kernel_wide_bands(card, band):
+    """Bands past the one-warp instance run the block instance (its two
+    rows in shared memory; at 26000 in global scratch), forward and
+    backward, with free gaps so the far cells of the band decide results;
+    exact against the plain version, one launch each."""
+    from repro_torch.obs import Tracer, tracing
+
+    rng = np.random.default_rng(2000 + band)
+    for direction in (1, -1):
+        args = _xdrop_walks(rng, 45, 700, 420, direction)
+        tr = Tracer(memory=False)
+        with tracing(tr):
+            _xdrop_same(card, args, band=band, max_steps=4096, xdrop=30)
+            _xdrop_same(card, args, band=band, max_steps=4096, xdrop=400,
+                        match=2, mismatch=-1, gap=0)
+        assert {sp.attrs["instance"] for sp in tr.find("kernel_launch")} \
+            == {"block"}
+    # the wrapper's mirror of the launcher's scratch rule
+    from repro_torch.kernels.xdrop import ops as xops
+
+    query = K.KERNELS["xdrop"].entry("xdrop_scratch_bytes", [ctypes.c_int],
+                                     ctypes.c_longlong)
+    for b in (1, 256, 257, band, 25600, 25601):
+        assert query(b) == xops.scratch_bytes(b)
+    assert (xops.scratch_bytes(band) > 0) == (band == 26000)
+
+
 def test_xdrop_kernel_two_directions_in_one_launch(card):
     """(2, E) walks: one launch, equal to the plain version and to two
     single-direction launches."""
@@ -105,7 +135,13 @@ def test_xdrop_kernel_two_directions_in_one_launch(card):
         (fwd[1], bwd_base_a), (fwd[2], -fwd[2]), (fwd[3], bwd_base_a + 1),
         (fwd[5], bwd_base_b), (fwd[6], -fwd[6]), (fwd[7], bwd_base_b + 1))]
     kw = dict(band=65, max_steps=4096, xdrop=30)
-    got = _xdrop_same(card, [a, *walks[:3], b, *walks[3:]], **kw)
+    from repro_torch.obs import Tracer, tracing
+
+    tr = Tracer(memory=False)
+    with tracing(tr):
+        got = _xdrop_same(card, [a, *walks[:3], b, *walks[3:]], **kw)
+    (sp,) = tr.find("kernel_launch")
+    assert sp.attrs["instance"] == "warp"  # the main path's band
     for d in range(2):
         one = _xdrop_same(card, [a, *(w[d] for w in walks[:3]), b,
                                  *(w[d] for w in walks[3:])], **kw)
@@ -113,11 +149,12 @@ def test_xdrop_kernel_two_directions_in_one_launch(card):
             assert torch.equal(g[d], o)
 
 
-@pytest.mark.parametrize("band", [33, 65, 256])
+@pytest.mark.parametrize("band", [33, 65, 256, 512])
 def test_xdrop_kernel_ties_across_lanes_and_registers(card, band):
     """A two-letter alphabet with free gaps scores many cells of a step
     alike: the first maximum (lowest band offset) must win, as in the plain
-    version."""
+    version, across lanes and registers (one-warp instance) and across
+    warps (the block instance at band 512)."""
     rng = np.random.default_rng(band)
     args = _xdrop_walks(rng, 64, 400, 400, 1, err=0.3, alphabet=2)
     _xdrop_same(card, args, band=band, max_steps=4096, xdrop=12, match=1,
@@ -154,7 +191,7 @@ def test_xdrop_kernel_malformed_walks_raise(card):
     with pytest.raises(ValueError, match="base_a"):
         K.xdrop_extend_batch(*bad)
     with pytest.raises(ValueError, match="band"):
-        K.xdrop_extend_batch(*args, band=257)
+        K.xdrop_extend_batch(*args, band=0)
 
 
 def test_assemble_on_card_pads_not_extended(card):
@@ -215,6 +252,57 @@ def test_pileup_kernel_matches_plain(card):
         want = K.pileup_vote_ref(*args, min_depth=md)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("min_depth", [1, 2])
+@pytest.mark.parametrize("case", _pileup_cases.CASES)
+def test_pileup_kernel_parity_traps(card, case, min_depth):
+    """The tile-list kernel at each parity trap of its design (pieces
+    longer than LR, negative starts, starts at or past L, empty pieces, L
+    of 1, 8, 9 and around the tile, a tile that 220 pieces reach, a contig
+    with no pieces): three launches, one kernel_launch span each, exact
+    against the plain version."""
+    from repro_torch.obs import Tracer, tracing
+
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(card)
+            for x in _pileup_cases.case_inputs(case)]
+    before = K.KERNELS["pileup"].launches
+    tr = Tracer(memory=False)
+    with tracing(tr):
+        got = K.pileup_vote(*args, min_depth=min_depth)
+    assert K.KERNELS["pileup"].launches == before + 3
+    assert [sp.attrs["phase"] for sp in tr.find("kernel_launch")] == [
+        "bin_count", "bin_fill", "vote"]
+    want = K.pileup_vote_ref(*args, min_depth=min_depth)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+def test_pileup_tile_lists_on_card(card):
+    """The count and fill launches list each piece once in every tile its
+    vote columns reach (the order inside a list is free), within the
+    capacity sized from shapes alone."""
+    from repro_torch.kernels.pileup import ops as pops
+
+    draft, pieces, start, plen = (
+        torch.from_numpy(x).to(card)
+        for x in _pileup_cases.case_inputs("dense_tile"))
+    l, lr = draft.shape[1], pieces.shape[2]
+    ends, slots = pops.tile_lists(start, plen, l, lr)
+    torch.cuda.synchronize()
+    lo, hi = (x.cpu() for x in pops.vote_ranges(start, plen, l, lr))
+    nt = -(-l // pops.TILE)
+    assert int(ends[-1]) == int(pops.tile_entries(start, plen, l, lr).sum())
+    assert int(ends[-1]) <= slots.numel()
+    ends = ends.cpu().tolist()
+    for t in range(nt):
+        got = sorted(slots[(ends[t - 1] if t else 0):ends[t]].cpu().tolist())
+        want = [pm for pm in range(start.shape[1])
+                if lo[0, pm] < min(hi[0, pm], (t + 1) * pops.TILE)
+                and hi[0, pm] > max(lo[0, pm], t * pops.TILE)]
+        assert got == want
+    assert ends[1] - ends[0] >= 200
 
 
 def _stage_panels(rng, kind, stages, n, nb, ka, kb, n_out):
@@ -330,23 +418,60 @@ def test_spgemm_kernel_wide_grid_whose_live_candidates_fit(card, kind):
                  cap=64, n_out=700)
 
 
-def test_spgemm_kernel_row_too_full_raises(card):
-    """A row whose live candidates do not fit in a block raises, naming the
-    count, and launches nothing."""
-    stages, n, nb, ka, kb = 1, 2, 64, 512, 64
-    a_cols = np.tile(np.arange(ka, dtype=np.int32) % nb, (stages, n, 1))
-    b_cols = np.tile(np.arange(kb, dtype=np.int32), (stages, nb, 1))
-    pos = {"pos": np.zeros_like(a_cols)}
-    args = [torch.from_numpy(x).to(card) for x in (
-        np.zeros(stages, np.int32), a_cols, b_cols)]
-    before = K.KERNELS["spgemm"].launches
-    with pytest.raises(ValueError, match=f"{ka * kb} live candidates"):
-        K.spgemm_ring_stages(
-            args[0], args[1], {k: torch.from_numpy(v).to(card)
-                               for k, v in pos.items()},
-            args[2], {"pos": torch.zeros_like(args[2])},
-            semiring=overlap_semiring, capacity=8, n_cols_out=kb)
-    assert K.KERNELS["spgemm"].launches == before
+@pytest.mark.parametrize("kind", ["overlap", "minplus"])
+@pytest.mark.parametrize("case", ["at_limit", "just_above", "grid_full",
+                                  "many_full"])
+def test_spgemm_kernel_row_too_full_runs_global_instance(card, kind, case):
+    """A row whose live candidates do not fit in a block's shared memory is
+    computed by the global instance in the same launch, exact against the
+    plain version (stage buffers, values, overflow): a row at the limit
+    exactly (shared-memory instance), one just above it, the 512 x 64 grid
+    with every slot live (32768 candidates a row, two stages), and more
+    rows too full than the global instance has blocks."""
+    from _spgemm_rows import rows_of_sizes
+
+    from repro_torch.obs import Tracer, tracing
+
+    sr_id = 0 if kind == "overlap" else 1
+    rng = np.random.default_rng(len(case) + sr_id)
+    ka, kb = 512, 64
+    fit = tops.fit_candidates(sr_id, ka, kb)
+    if case == "grid_full":
+        stages, n, nb = 2, 3, 64
+        offsets = (np.arange(stages) * nb).astype(np.int32)
+        a_cols = (np.arange(ka, dtype=np.int32) % nb
+                  + offsets[:, None, None]) * np.ones((1, n, 1), np.int32)
+        a_cols[:, 1] = -1  # an empty row between two full ones
+        b_cols = np.tile(np.arange(kb, dtype=np.int32), (stages, nb, 1))
+        if kind == "overlap":
+            a_vals = {"pos": rng.integers(0, 900, a_cols.shape).astype(np.int32)}
+            b_vals = {"pos": rng.integers(0, 900, b_cols.shape).astype(np.int32)}
+        else:  # finite: no product is zero
+            a_vals = {MP: rng.integers(1, 90, a_cols.shape + (4,)).astype(
+                np.float32)}
+            b_vals = {MP: rng.integers(1, 90, b_cols.shape + (4,)).astype(
+                np.float32)}
+        n_out, want_global = kb, stages * (n - 1)
+    else:
+        sizes = {"at_limit": [fit, 17, 0, fit - 1],
+                 "just_above": [fit + 1, fit, 5],
+                 "many_full": [fit + 1 + (r % 7) for r in range(300)]
+                 + [0, 3 * fit]}[case]
+        offsets, a_cols, a_vals, b_cols, b_vals, n_out = rows_of_sizes(
+            rng, sizes, kb, kind, ka=ka)
+        want_global = sum(v > fit for v in sizes)
+    tr = Tracer(memory=False)
+    with tracing(tr):
+        for cap in (8, 300):
+            _spgemm_same(card, kind, offsets, a_cols, a_vals, b_cols, b_vals,
+                         cap=cap, n_out=n_out)
+    for sp in tr.find("kernel_launch"):
+        assert sp.attrs["global_rows"] == want_global
+        assert (sp.attrs["global_blocks"] > 0) == (want_global > 0)
+    if case == "at_limit":
+        (sp, _) = tr.find("kernel_launch")
+        assert sp.attrs["max_candidates"] == fit
+        assert sp.attrs["shared_bytes"] <= tops.MAX_SHARED_BYTES
 
 
 def test_spgemm_occupancy_several_blocks_per_sm(card):
@@ -362,6 +487,13 @@ def test_spgemm_occupancy_several_blocks_per_sm(card):
                              (512, 256, 128)):
             assert size(sr, vcap, ka, kb) == tops.shared_bytes(sr, vcap, ka,
                                                                kb)
+    # and of the global instance's scratch a block
+    gsize = tops.KERNEL.entry("spgemm_global_bytes", [ctypes.c_int] * 4,
+                              ctypes.c_longlong)
+    for sr in (0, 1):
+        for vcap, ka, kb in ((32768, 512, 64), (4, 1, 1), (10356, 512, 64)):
+            assert gsize(sr, vcap, ka, kb) == tops.global_bytes(sr, vcap, ka,
+                                                                kb)
 
 
 def test_assemble_on_card_matches_reference_backend(card):

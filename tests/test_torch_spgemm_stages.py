@@ -393,3 +393,47 @@ def test_radix_sort_emulation_is_stable():
         cols = [int(x) for x in rng.integers(0, hi, v)]
         perm = _radix_sort(cols, max(cols).bit_length())
         assert perm == sorted(range(v), key=lambda q: (cols[q], q))
+
+
+def test_row_routing_is_a_function_of_the_counts():
+    """Which rows take the global instance follows from the count launch's
+    per-row totals alone: those past ``fit_candidates``, the largest
+    multiple of 4 whose block fits in shared memory (-1 where not even 4
+    do); the shared-memory instance, sized by the rows that fit, holds at
+    most ``fit`` and so returns from exactly the routed rows."""
+    from _spgemm_rows import rows_of_sizes
+
+    for sr in (0, 1):
+        for ka, kb in ((160, 56), (512, 64), (256, 256), (1, 1)):
+            fit = tops.fit_candidates(sr, ka, kb)
+            assert fit % 4 == 0 and tops.block_candidates(fit) == fit
+            assert tops.shared_bytes(sr, fit, ka, kb) <= tops.MAX_SHARED_BYTES
+            assert tops.shared_bytes(sr, fit + 4, ka, kb) > tops.MAX_SHARED_BYTES
+        assert tops.fit_candidates(sr, 28000, 32) == -1
+    assert tops.fit_candidates(0, 160, 56) > 1891  # the 4000-read launch fits
+    rng = np.random.default_rng(4)
+    kb = 64
+    for sr, kind in ((0, "overlap"), (1, "mpsr")):
+        ka = 512
+        fit = tops.fit_candidates(sr, ka, kb)
+        sizes = [fit, fit + 1, 0, fit - 3, 3 * fit, fit + 4, 17]
+        offsets, a_cols, _, b_cols, _, _ = rows_of_sizes(rng, sizes, kb, kind,
+                                                         ka=ka)
+        live = tops.live_candidates(*(torch.from_numpy(x) for x in (
+            offsets, a_cols, b_cols)))
+        assert live[0].tolist() == sizes
+        routed = tops.global_rows(live, fit)
+        assert routed[0].tolist() == [False, True, False, False, True, True,
+                                      False]
+        vcap = tops.block_candidates(int(live[~routed].max()))
+        assert vcap <= fit and bool((live[routed] > vcap).all())
+    assert tops.global_rows(torch.tensor([0, 5]), -1).all()
+    # the global instance's grid: a block a routed row, at most 2 an SM and
+    # what the scratch budget holds, at least one
+    assert tops.global_blocks(1, 10 ** 6, 132) == 1
+    assert tops.global_blocks(5000, 1_400_000, 132) == 264
+    assert tops.global_blocks(40, 1 << 28, 132) == 4
+    assert tops.global_blocks(3, 1 << 31, 132) == 1
+    assert tops.global_bytes(0, 4, 1, 1) + 4 * (16 * 256 + 128) + 256 == \
+        tops.shared_bytes(0, 4, 1, 1)
+
