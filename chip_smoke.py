@@ -36,6 +36,14 @@ exit, no result line) on any check that does not hold:
              exchange keys) and the polished contigs must equal phase 3's.
              Then ``dist_transitive_reduction_ring`` on phase 3's R must
              give the S of the local Algorithm 2 (min-plus spgemm launches);
+3c. pod grid — on the same NCCL group, a (1, 1, 1) ``("pod", "data",
+             "model")`` grid: ``assemble(distribution="shard_map")`` on the
+             same reads with the grid rows on ``("data",)`` (the ring: an
+             spgemm launch counted) and on ``("pod", "data")`` (the
+             recorded all-gather fallback: no spgemm launch), each read
+             with its counts set to 0 just before: R, S, the stats (but
+             path and exchange keys) and the polished contigs must equal
+             phase 3's;
 4. kernels — each kernel against its plain PyTorch version on the card, at
              the main path's own inputs, exact equality; CUDA-event times of
              both and the least time the card could take (``bound_ms``).
@@ -71,7 +79,17 @@ exit, no result line) on any check that does not hold:
              S's state graph;
 5. parity  — ``assemble(backend="reference")`` (plain torch ops and the host
              contig walk) on the card: R, S, every stats key but the timing,
-             memory and path labels, and the polished contigs must be equal.
+             memory and path labels, and the polished contigs must be equal;
+6. dibella — the paper's H. sapiens cell (``launch/dibella_cell.py``, the
+             overlap SpGEMM and the fused transitive reduction, torch ops,
+             no hand kernel) on a 1×1 grid, inputs drawn from ``--seed`` on
+             the card: at ``reduced()`` the overlap C and the TR's S must
+             equal the local ``spgemm`` and ``transitive_reduction_fused``
+             (both backends) exactly; at a cut size (``--dibella-cut``
+             reads) ``row_chunk=None`` must equal ``row_chunk=4096``; then
+             the cell at ``--dibella-reads`` reads (the full config's
+             4,194,304 by default): per-stage ms, the allocator's peak and
+             the record's roofline terms.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -139,6 +157,10 @@ def parse_args():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--genome-kb", type=int, default=400)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dibella-reads", type=int, default=None,
+                    help="reads of phase 6's cell (default: the full config)")
+    ap.add_argument("--dibella-cut", type=int, default=1 << 16,
+                    help="reads of phase 6's row_chunk=None check")
     return ap.parse_args()
 
 
@@ -232,10 +254,17 @@ def main() -> None:
             connected_components,
             expand_states,
         )
-        from repro_torch.core.grid import ProcessGrid
+        from repro_torch.configs import get_config, reduced_config
+        from repro_torch.core.grid import POD_AXES, ProcessGrid
+        from repro_torch.core.spgemm import spgemm
+        from repro_torch.core.semiring import overlap_semiring
         from repro_torch.core.semiring import MP, minplus_orient_semiring
         from repro_torch.core.spmat import EllMatrix, ell_equal
-        from repro_torch.core.transitive_reduction import transitive_reduction
+        from repro_torch.core.transitive_reduction import (
+            transitive_reduction,
+            transitive_reduction_fused,
+        )
+        from repro_torch.launch import dryrun as DR
         from repro_torch.kernels.build import BUILD_LOG, build_all
         from repro_torch.kernels.cc import ops as cc_ops
         from repro_torch.kernels.pileup import ops as pu_ops
@@ -534,6 +563,52 @@ def main() -> None:
               f"== local TR; == the pipeline's S: "
               f"{ell_equal(s_ring, res.s_graph)}", flush=True)
         cap_tr = captured.pop("spgemm_ring_stages")[0]
+
+        # --- 3c. pod grid ---
+        pod = ProcessGrid.of_shape((1, 1, 1), POD_AXES)
+        skip = set(PATH_KEYS) | set(SHARD_MAP_KEYS) | {"summa_fallback_reason"}
+        for row_axes in (("data",), ("pod", "data")):
+            pcfg = dataclasses.replace(sm_cfg, mesh=pod, row_axes=row_axes)
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            res_p = assemble(reads.codes, reads.lengths, pcfg)
+            torch.cuda.synchronize()
+            wall_p = time.perf_counter() - t0
+            pod_launches = K.launch_counts()
+            sp_ = res_p.stats
+            tag = f"[pod] rows on {row_axes}"
+            ring = row_axes == ("data",)
+            for name in GSPMD_KERNELS + (("spgemm",) if ring else ()):
+                check(pod_launches[name] > 0,
+                      f"{tag}: kernel {name} was not launched")
+            if ring:
+                check(sp_["summa_algorithm"] == "ring"
+                      and sp_["summa_backend"] == "cuda",
+                      f"{tag}: summa {sp_['summa_algorithm']}")
+            else:
+                check(sp_["summa_algorithm"] == "allgather_fallback"
+                      and sp_["summa_fallback_reason"]
+                      == "multi-axis grid rows ('pod', 'data')"
+                      and pod_launches["spgemm"] == 0,
+                      f"{tag}: summa {sp_['summa_algorithm']}, "
+                      f"{pod_launches['spgemm']} spgemm launches")
+            check(ell_equal(res.r_graph, res_p.r_graph), f"{tag}: R differs")
+            check(ell_equal(res.s_graph, res_p.s_graph), f"{tag}: S differs")
+            diff = [k for k in st if k not in skip
+                    and not k.startswith("exchange_") and st[k] != sp_.get(k)]
+            check(not diff, f"{tag}: stats differ from gspmd: {diff}")
+            a, b = res.polished_contigs, res_p.polished_contigs
+            check(len(a) == len(b) and all(
+                x.reads == y.reads and np.array_equal(x.codes, y.codes)
+                for x, y in zip(a, b)), f"{tag}: polished contigs differ")
+            print(f"{tag}: assemble {wall_p:.2f} s, summa "
+                  f"{sp_['summa_algorithm']}, launches "
+                  f"{json.dumps(pod_launches)}; == gspmd: R, S, stats, "
+                  f"{len(b)} polished contigs; stages (s): "
+                  + json.dumps({k: round(v, 4)
+                                for k, v in res_p.timings.items()}),
+                  flush=True)
+            del res_p
     finally:
         dist.destroy_process_group()
 
@@ -986,6 +1061,88 @@ def main() -> None:
         for x, y in zip(a, b)), "polished contigs differ between backends")
     print(f"[parity] cuda == reference: R, S, {len(res.stats) - len(PATH_KEYS)} "
           f"stats keys, {len(a)} polished contigs", flush=True)
+
+    # --- 6. dibella cell ---
+    grid1 = ProcessGrid.square()  # no process group: the 1x1 grid
+    rcfg = reduced_config("dibella")
+    red = DR.run_cell(rcfg, grid1, seed=args.seed, device="cuda")
+    a_cols, a_vals, at_cols, at_vals = red["inputs"]["overlap"]
+    c_loc, ovf_loc = spgemm(
+        EllMatrix(cols=a_cols, vals=a_vals, n_cols=rcfg.m_kmers),
+        EllMatrix(cols=at_cols, vals=at_vals, n_cols=rcfg.n_reads),
+        semiring=overlap_semiring, capacity=rcfg.overlap_block_capacity)
+    cc, cv, c_ovf = red["outputs"]["overlap"]
+    check(torch.equal(cc, c_loc.cols) and int(c_ovf) == int(ovf_loc)
+          and all(torch.equal(cv[k], c_loc.vals[k]) for k in cv),
+          "dibella reduced: the overlap C differs from the local spgemm")
+    r_cols, r_vals = red["inputs"]["tr"]
+    sc, sv, s_it, s_nnz = red["outputs"]["tr"]
+    for backend in ("reference", "cuda"):
+        s_loc, s_st = transitive_reduction_fused(
+            EllMatrix(cols=r_cols, vals={MP: r_vals}, n_cols=rcfg.n_reads),
+            fuzz=rcfg.tr_fuzz, backend=backend)
+        check(torch.equal(sc, s_loc.cols) and torch.equal(sv, s_loc.vals[MP])
+              and s_it == s_st.iterations,
+              f"dibella reduced: the TR's S differs from the local "
+              f"transitive_reduction_fused ({backend}, {s_st.backend})")
+    print(f"[dibella] reduced ({rcfg.n_reads} reads): C == local spgemm "
+          f"(overflow {int(c_ovf)}), S == local transitive_reduction_fused "
+          f"on both backends ({s_it} iterations, nnz {s_nnz} of "
+          f"{int((r_cols >= 0).sum())})", flush=True)
+    del red
+
+    cfg_full = get_config("dibella")
+    cut = dataclasses.replace(cfg_full, n_reads=args.dibella_cut,
+                              m_kmers=4 * args.dibella_cut)
+    runs = {}
+    for rc in (4096, None):
+        out = DR.run_cell(cut, grid1, row_chunk=rc, seed=args.seed,
+                          device="cuda")
+        runs[rc] = out
+        torch.cuda.synchronize()
+    for stage in ("overlap", "tr"):
+        x, y = runs[4096]["outputs"][stage], runs[None]["outputs"][stage]
+        check(torch.equal(x[0], y[0]) and all(
+            torch.equal(u, v) for u, v in zip(
+                x[1].values() if isinstance(x[1], dict) else [x[1]],
+                y[1].values() if isinstance(y[1], dict) else [y[1]]))
+            and [int(v) for v in x[2:]] == [int(v) for v in y[2:]],
+            f"dibella at {cut.n_reads} reads: {stage} differs between "
+            "row_chunk=4096 and row_chunk=None")
+    print(f"[dibella] {cut.n_reads} reads: row_chunk=4096 == row_chunk=None; "
+          "ms (4096 / None): " + json.dumps({
+              s: [runs[rc]["record"]["stages"][s]["ms"] for rc in (4096, None)]
+              for s in ("overlap", "tr")}), flush=True)
+    del runs, out
+
+    n_full = args.dibella_reads or cfg_full.n_reads
+    cell = (cfg_full if n_full == cfg_full.n_reads else dataclasses.replace(
+        cfg_full, n_reads=n_full, m_kmers=4 * n_full))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    full = DR.run_cell(cell, grid1, seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    rec = full["record"]
+    for stage in ("overlap", "tr"):
+        o = full["outputs"][stage]
+        check(o[0].shape[0] == cell.n_reads and bool(
+            ((o[0] >= -1) & (o[0] < cell.n_reads)).all()),
+            f"dibella {stage}: output columns out of range")
+    sv = full["outputs"]["tr"][1]
+    check(bool((torch.isfinite(sv) | torch.isinf(sv)).all()),
+          "dibella tr: NaN in S")
+    check(0 < rec["stages"]["tr"]["nnz"] < int((full["inputs"]["tr"][0] >= 0)
+                                               .sum()),
+          "dibella tr: nothing pruned")
+    print(f"[dibella] {cell.n_reads} reads, {cell.m_kmers} k-mers on a 1x1 "
+          f"grid in {time.perf_counter() - t0:.2f} s (inputs "
+          f"{rec['input_seconds']:.2f} s): " + json.dumps({
+              s: {k: v for k, v in st_.items()} for s, st_ in
+              rec["stages"].items()}), flush=True)
+    print(f"[dibella] allocator peak {torch.cuda.max_memory_allocated()} "
+          f"bytes; roofline {json.dumps(rec['roofline'])}; fraction "
+          f"{rec['roofline_fraction']}", flush=True)
+    del full
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

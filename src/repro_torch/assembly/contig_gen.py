@@ -208,19 +208,21 @@ def _order_chains(cut, dbl):
     }
 
 
-def _chain_state(s: EllMatrix, *, distribution: str = "gspmd", mesh=None):
+def _chain_state(s: EllMatrix, *, distribution: str = "gspmd", mesh=None,
+                 row_axes=None):
     """Graph cut → doubling → chain ordering.  Returns ``(st,
     dist_stats)``.
 
     ``"gspmd"`` runs the single-device path, with the exchange accounting
     present and zero; ``"shard_map"`` runs all three sub-stages over the
-    grid rows of ``mesh`` (default: every rank a grid row) in
+    grid rows of ``mesh`` (default: every rank a grid row), on its axes
+    ``row_axes`` (default: its ``("pod", "data")`` axes), in
     ``core/components_dist.contig_stage_shard_map``, with its measured
     per-phase words and rounds."""
     if resolve_distribution(distribution) == "shard_map":
         from ..core.components_dist import contig_stage_shard_map
 
-        st, xstats = contig_stage_shard_map(s, mesh=mesh)
+        st, xstats = contig_stage_shard_map(s, mesh=mesh, row_axes=row_axes)
         return st, {**ZERO_EXCHANGE_STATS, **xstats}
     cut = _graph_cut(s)
     st = _order_chains(cut, _doubling_local(cut["succ0"], cut["pred0"]))
@@ -369,7 +371,8 @@ def _gather_codes(st, lay, codes, lengths, *, c: int, l: int):
 
 
 def _device_contig_gen(s_mat, codes, lengths, contained=None, *,
-                       distribution: str = "gspmd", mesh=None) -> ContigSet:
+                       distribution: str = "gspmd", mesh=None,
+                       row_axes=None) -> ContigSet:
     """Device array path of the ``contig_gen`` op."""
     codes = codes.to(torch.uint8)
     lengths = lengths.to(_I32)
@@ -377,7 +380,7 @@ def _device_contig_gen(s_mat, codes, lengths, contained=None, *,
     contained = (torch.zeros(n, dtype=torch.bool, device=codes.device)
                  if contained is None else contained.to(torch.bool))
     st, dist_stats = _chain_state(s_mat, distribution=distribution,
-                                  mesh=mesh)
+                                  mesh=mesh, row_axes=row_axes)
     ca = next_pow2(int(st["n_chains"]))
     m = next_pow2(int(st["max_chain"]))
     lay = _chain_layout(st, lengths, contained, ca=ca, m=m)
@@ -400,11 +403,11 @@ def _device_contig_gen(s_mat, codes, lengths, contained=None, *,
 
 
 def _reference_contig_gen(s_mat, codes, lengths, contained=None, *,
-                          distribution: str = "gspmd", mesh=None
-                          ) -> ContigSet:
+                          distribution: str = "gspmd", mesh=None,
+                          row_axes=None) -> ContigSet:
     """Host walk (``contigs.py``) packed into the ContigSet contract; its
     stats report ``distribution="host"``."""
-    del distribution, mesh
+    del distribution, mesh, row_axes
     dev = codes.device
     codes_np = codes.cpu().numpy()
     lengths_np = lengths.cpu().numpy()
@@ -463,11 +466,13 @@ register_op("contig_gen", "cuda", _device_contig_gen)
 
 def generate_contigs(s_mat, codes, lengths, contained=None, *,
                      backend: str = "auto", distribution: str = "gspmd",
-                     mesh=None) -> ContigSet:
+                     mesh=None, row_axes=None) -> ContigSet:
     """Contigs stage entry point: the registered ``contig_gen`` backend on
     string matrix S (``"reference"`` host walk, ``"cuda"`` device path,
-    whose chain stage ``distribution="shard_map"`` runs over ``mesh``)."""
+    whose chain stage ``distribution="shard_map"`` runs over the grid rows
+    ``row_axes`` of ``mesh``)."""
     return dispatch("contig_gen", backend, codes.device)(
         s_mat, codes, lengths, contained,
         distribution=resolve_distribution(distribution), mesh=mesh,
+        row_axes=row_axes,
     )

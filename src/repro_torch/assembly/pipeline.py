@@ -18,9 +18,13 @@ JAX run, with ``"cuda"`` where JAX reports ``"pallas"``.
 (``core/summa.py``), Alignment on the block-split bucket
 (``core/align_dist.py``) and the Contigs chain stage over the grid rows
 (``core/components_dist.py``), on a ``torch.distributed`` process grid:
-``cfg.mesh`` (a ``core.grid.ProcessGrid``) or, without one, the square
-grid for SpGEMM and the P×1 grid for the other two, as JAX's default
-meshes.  Every rank calls ``assemble`` on the same reads and gets the same
+``cfg.mesh`` (a ``core.grid.ProcessGrid`` on ``("data", "model")`` or
+``("pod", "data", "model")``) or, without one, the square grid for SpGEMM
+and the P×1 grid for the other two, as JAX's default meshes.  The grid rows
+of all three lie on ``cfg.row_axes``: by default the grid's ``("pod",
+"data")`` axes, as JAX's ``infer_row_axes`` (on both axes the ring SUMMA
+takes its recorded all-gather fallback, as in JAX); ``("data",)`` on a
+pod grid leaves the pods as replicas.  Every rank calls ``assemble`` on the same reads and gets the same
 result; without a process group the grid is 1×1.  As in JAX, TrReduction
 stays local.
 
@@ -35,13 +39,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from ..core.align_dist import align_bucket_shard_map
 from ..core.backend import resolve_backend, resolve_device, resolve_distribution
-from ..core.grid import resolve_grid
+from ..core.grid import resolve_grid, resolve_row_axes
 from ..core.semiring import overlap_semiring
 from ..core.spgemm import spgemm
 from ..core.spmat import fill_pad_rows, map_row_blocks, next_pow2
@@ -106,6 +110,9 @@ class PipelineConfig:
     # torch.distributed process grid)
     distribution: str = "gspmd"
     mesh: Any = None
+    # grid-row axes of the shard_map stages (None: the grid's ("pod",
+    # "data") axes, JAX's infer_row_axes)
+    row_axes: Optional[Tuple[str, ...]] = None
     # collect a hierarchical span trace (stage → shard_map phase → op →
     # kernel launch) on AssemblyResult.trace; spans also open
     # torch.profiler.record_function ranges of the same names
@@ -137,6 +144,8 @@ def _check_supported(cfg: PipelineConfig) -> None:
     resolve_distribution(cfg.distribution)
     if cfg.mesh is not None:
         resolve_grid(cfg.mesh, "square")  # a ProcessGrid, or raise
+    if cfg.row_axes is not None:
+        resolve_row_axes(resolve_grid(cfg.mesh, "square"), cfg.row_axes)
 
 
 @contextlib.contextmanager
@@ -215,8 +224,8 @@ def _align_candidates(codes, lengths, c_mat, n, cfg, backend, device):
 
     if cfg.distribution == "shard_map":
         res_b, align_stats = align_bucket_shard_map(
-            codes, cand, k=cfg.k, mesh=cfg.mesh, backend=backend,
-            xdrop=cfg.xdrop, match=cfg.match, mismatch=cfg.mismatch,
+            codes, cand, k=cfg.k, mesh=cfg.mesh, row_axes=cfg.row_axes,
+            backend=backend, xdrop=cfg.xdrop, match=cfg.match, mismatch=cfg.mismatch,
             gap=cfg.gap, band=cfg.band, max_steps=cfg.max_steps,
             n_live=n_live)
     else:
@@ -305,7 +314,7 @@ def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
                 a, at, semiring=overlap_semiring,
                 operand_semiring=first_semiring,
                 capacity=cfg.overlap_capacity, mesh=cfg.mesh,
-                backend=backend)
+                row_axes=cfg.row_axes, backend=backend)
         else:
             c_mat, ovf_c = spgemm(a, at, semiring=overlap_semiring,
                                   capacity=cfg.overlap_capacity)
@@ -376,7 +385,7 @@ def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
     with _tic(timings, "Contigs") as sp:
         cset = generate_contigs(s_mat, codes, lengths, contained,
                                 backend=backend, distribution=cfg.distribution,
-                                mesh=cfg.mesh)
+                                mesh=cfg.mesh, row_axes=cfg.row_axes)
         contigs = cset.to_contigs()
         cs = contig_stats(contigs)
         sp.set_output(cset.codes)

@@ -3,13 +3,15 @@
 
 The PyTorch counterpart of ``repro.core.align_dist``.  The alignment
 stage's compacted candidate bucket is parallel per pair, so the bucket is
-block-split over the grid rows (axis ``"data"``; the ranks of one grid row
-do the same work, as ``shard_map`` replicates over the column axis), with
-every exchanged word counted where it is issued:
+block-split over the grid rows — the grid axes ``row_axes``, by default
+``("pod", "data")`` where the grid has both (JAX's ``infer_row_axes``); the
+ranks of one grid row do the same work, as ``shard_map`` replicates over
+the column axis — with every exchanged word counted where it is issued:
 
 1. **gather_reads** — each rank starts from its ``n/P`` row shard of the
-   read codes; a ring all-gather of ``P − 1`` ``ppermute`` hops
-   (``(n/P) · L`` words each) replicates the full matrix.
+   read codes; a ring all-gather of ``ppermute`` hops over each row axis,
+   innermost first (``s − 1`` hops on an axis of size ``s``, each the words
+   gathered so far), replicates the full matrix.
 2. **extend** — the rank's ``bucket/P`` candidates below ``n_live`` (the
    pad slots repeat pair 0 and are not extended) gather their read rows,
    orient strand-1 partners with ``revcomp`` and run
@@ -26,11 +28,12 @@ same bit for bit.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
-from .grid import ProcessGrid, resolve_grid
+from .components_dist import ring_all_gather
+from .grid import resolve_grid, resolve_row_axes
 from .spmat import fill_pad_rows
 from ..obs import span, validated
 
@@ -46,27 +49,8 @@ def _pad_multiple(x: int, p: int) -> int:
     return -(-x // p) * p
 
 
-def _counted_gather(grid: ProcessGrid, x: torch.Tensor, acct: Dict[str, int]
-                    ) -> torch.Tensor:
-    """Ring all-gather of the row shard ``x`` over the grid rows, counting
-    the words of each hop: index ``t`` sends to ``t + 1``, so hop ``s``
-    brings shard ``(t − s) mod P``."""
-    p = grid.pr
-    if p == 1:
-        return x
-    perm = [(t, (t + 1) % p) for t in range(p)]
-    parts, cur = [x], x
-    for _ in range(p - 1):
-        acct["words"] += x.numel()
-        acct["rounds"] += 1
-        cur = grid.ppermute(cur, "data", perm)
-        parts.append(cur)
-    t = grid.i
-    return torch.cat([parts[(t - q) % p] for q in range(p)], dim=0)
-
-
 def align_bucket_shard_map(codes, cand: Dict[str, Any], *, k: int,
-                           mesh: Optional[ProcessGrid] = None,
+                           mesh=None, row_axes: Optional[Sequence[str]] = None,
                            backend: str = "reference", xdrop: int = 15,
                            match: int = 1, mismatch: int = -1, gap: int = -1,
                            band: int = 33, max_steps: int = 512,
@@ -79,7 +63,8 @@ def align_bucket_shard_map(codes, cand: Dict[str, Any], *, k: int,
     compaction dict (keys ``i, j, li, lj, pa, pb, strand``, each (bucket,)
     int32); every rank holds both.  Reads pad to a multiple of P with zero
     rows and the bucket with zero pairs, whose results are sliced off.
-    ``mesh`` defaults to the P×1 grid (:meth:`ProcessGrid.rows`).
+    ``mesh`` defaults to the P×1 grid (:meth:`ProcessGrid.rows`),
+    ``row_axes`` to its ``("pod", "data")`` axes.
 
     ``n_live`` (default: the whole bucket) is the count of live pairs; the
     pairs from ``n_live`` on are pad slots that repeat pair 0's inputs.
@@ -91,7 +76,8 @@ def align_bucket_shard_map(codes, cand: Dict[str, Any], *, k: int,
     from ..assembly.kmers import revcomp  # at module load
 
     grid = resolve_grid(mesh, "rows")
-    p = grid.pr
+    row_axes = resolve_row_axes(grid, row_axes)
+    p, i = grid.size(row_axes), grid.axis_index(row_axes)
     codes = torch.as_tensor(codes).to(torch.uint8)
     dev = codes.device
     n, row_width = codes.shape
@@ -102,7 +88,7 @@ def align_bucket_shard_map(codes, cand: Dict[str, Any], *, k: int,
         codes = torch.cat([codes, torch.zeros((n_pad - n, row_width),
                                               dtype=torch.uint8, device=dev)])
     n_loc, blk = n_pad // p, bucket_pad // p
-    lo = grid.i * blk
+    lo = i * blk
 
     def local(x):
         x = x.to(torch.int32)
@@ -117,9 +103,9 @@ def align_bucket_shard_map(codes, cand: Dict[str, Any], *, k: int,
     with span("Alignment", kind="phase", phase="pair_exchange", p=p,
               bucket=bucket_pad) as sp:
         with span("Alignment", kind="phase", phase="gather_reads"):
-            codes_full = _counted_gather(
-                grid, codes[grid.i * n_loc:(grid.i + 1) * n_loc].contiguous(),
-                acct)
+            codes_full = ring_all_gather(
+                grid, codes[i * n_loc:(i + 1) * n_loc].contiguous(),
+                row_axes, acct)
 
         with span("Alignment", kind="phase", phase="extend"):
             if n_ext:
@@ -142,7 +128,7 @@ def align_bucket_shard_map(codes, cand: Dict[str, Any], *, k: int,
             if p > 1:
                 acct["words"] += 2 * (ALIGN_OUTPUTS * bucket_pad // p) * (p - 1)
                 acct["rounds"] += 1
-            full = grid.psum(buf, "data")
+            full = grid.psum(buf, row_axes)
         sp.set_output(full)
 
     res = al.PairAlignment(*(fill_pad_rows(full[t], n_rows, bucket)

@@ -2,8 +2,10 @@
 ordering — on a ``torch.distributed`` process grid.
 
 The PyTorch counterpart of ``repro.core.components_dist``.  The (2n,)
-state arrays are block-split over the grid rows (axis ``"data"``; the
-ranks of one grid row repeat the same work), and every exchange is
+state arrays are block-split over the grid rows — the grid axes
+``row_axes``, by default ``("pod", "data")`` where the grid has both (JAX's
+``infer_row_axes``), with row index ``p · n_data + d``; the ranks of one
+grid row repeat the same work — and every exchange is
 explicit: ``ppermute`` ring all-gathers for the doubling jumps,
 ``ppermute`` partner exchanges for the sort network, ``psum`` / ``pmax``
 for degree tallies, convergence tests and counts.
@@ -26,12 +28,12 @@ in the JAX module.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from .components import _log2_ceil, expand_state_rows
-from .grid import ProcessGrid, resolve_grid
+from .grid import ProcessGrid, resolve_grid, resolve_row_axes
 from ..obs import span
 
 _I32 = torch.int32
@@ -57,28 +59,36 @@ SORT_WORDS = 3
 _SORT_BIG = 2**30
 
 
-def _ring_all_gather(grid: ProcessGrid, x: torch.Tensor) -> torch.Tensor:
-    """``ppermute`` ring all-gather over the grid rows: (n/P,) local shard →
-    (n,) global vector.  ``P − 1`` hops of ``n/P`` words; index ``t``
-    receives shard ``(t − s) mod P`` on hop ``s``."""
-    p = grid.pr
-    if p == 1:
-        return x
-    perm = [(t, (t + 1) % p) for t in range(p)]
-    parts, cur = [x], x
-    for _ in range(p - 1):
-        cur = grid.ppermute(cur, "data", perm)
-        parts.append(cur)
-    t = grid.i
-    return torch.cat([parts[(t - q) % p] for q in range(p)], dim=0)
+def ring_all_gather(grid: ProcessGrid, x: torch.Tensor, row_axes,
+                    acct: Optional[Dict[str, int]] = None) -> torch.Tensor:
+    """``ppermute`` ring all-gather of the row shard ``x`` over each of
+    ``row_axes``, innermost first (JAX's nested per-axis rings): an axis of
+    size ``s`` takes ``s − 1`` hops; index ``t`` receives shard ``(t − q)
+    mod s`` on hop ``q``.  The result is in row order (``p · n_data + d``).
+    ``acct`` (optional) counts each hop's words and one round per hop."""
+    for ax in reversed(tuple(row_axes)):
+        s = grid.size(ax)
+        if s == 1:
+            continue
+        perm = [(t, (t + 1) % s) for t in range(s)]
+        parts, cur = [x], x
+        for _ in range(s - 1):
+            if acct is not None:
+                acct["words"] += x.numel()
+                acct["rounds"] += 1
+            cur = grid.ppermute(cur, ax, perm)
+            parts.append(cur)
+        t = grid.axis_index(ax)
+        x = torch.cat([parts[(t - q) % s] for q in range(s)], dim=0)
+    return x
 
 
-def _closures(grid: ProcessGrid):
+def _closures(grid: ProcessGrid, row_axes):
     def gather(x):
-        return _ring_all_gather(grid, x)
+        return ring_all_gather(grid, x, row_axes)
 
     def psum_all(x):
-        return grid.psum(x.reshape(-1), "data").reshape(x.shape)
+        return grid.psum(x.reshape(-1), row_axes).reshape(x.shape)
 
     return gather, psum_all
 
@@ -153,14 +163,18 @@ def exchange_words(n_pad: int, p: int, bc_rounds: int, pc_iters: int,
 
 
 def doubling_shard_map(succ: torch.Tensor, pred: torch.Tensor, *,
-                       mesh: Optional[ProcessGrid] = None) -> Dict[str, Any]:
-    """The doubling middle over the grid rows, for ``(n,)`` int32 succ /
-    pred pointers every rank holds.  Returns the single-device arrays
-    (``succ``, ``pred`` cycle-cut, ``labels``, ``head``, ``rank``, global)
-    plus ``n_cut``, ``cc_iterations``, ``cr_iterations``, ``bc_rounds`` and
+                       mesh: Optional[ProcessGrid] = None,
+                       row_axes: Optional[Sequence[str]] = None
+                       ) -> Dict[str, Any]:
+    """The doubling middle over the grid rows (``row_axes``, default JAX's
+    ``infer_row_axes``), for ``(n,)`` int32 succ / pred pointers every rank
+    holds.  Returns the single-device arrays (``succ``, ``pred``
+    cycle-cut, ``labels``, ``head``, ``rank``, global) plus ``n_cut``,
+    ``cc_iterations``, ``cr_iterations``, ``bc_rounds`` and
     ``exchange_words``."""
     grid = resolve_grid(mesh, "rows")
-    p = grid.pr
+    row_axes = resolve_row_axes(grid, row_axes)
+    p = grid.size(row_axes)
     n = succ.shape[0]
     n_pad = -(-n // p) * p
     dev = succ.device
@@ -168,9 +182,9 @@ def doubling_shard_map(succ: torch.Tensor, pred: torch.Tensor, *,
         fill = torch.full((n_pad - n,), -1, dtype=_I32, device=dev)
         succ, pred = torch.cat([succ, fill]), torch.cat([pred, fill])
     n_loc = n_pad // p
-    lo = grid.i * n_loc
+    lo = grid.axis_index(row_axes) * n_loc
     ids_l = lo + torch.arange(n_loc, dtype=_I32, device=dev)
-    gather, psum_all = _closures(grid)
+    gather, psum_all = _closures(grid, row_axes)
     max_rounds = _log2_ceil(n_pad) + 1
     s2, p2, labels, head, rank, n_cut, pc_iters, cr_iters = _doubling_phases(
         succ[lo:lo + n_loc], pred[lo:lo + n_loc], ids_l, gather, psum_all,
@@ -261,12 +275,12 @@ def _lexsort(*keys: torch.Tensor) -> torch.Tensor:
     return order
 
 
-def _chain_stage_local(grid: ProcessGrid, cols_l, vals_l, n_read_pad: int,
-                       n_reads: int):
+def _chain_stage_local(grid: ProcessGrid, row_axes, cols_l, vals_l,
+                       n_read_pad: int, n_reads: int):
     """The rank-local body of :func:`contig_stage_shard_map`."""
-    gather, psum_all = _closures(grid)
-    p = grid.pr
-    idx = grid.i
+    gather, psum_all = _closures(grid, row_axes)
+    p = grid.size(row_axes)
+    idx = grid.axis_index(row_axes)
     n_states = 2 * n_read_pad
     n_loc = n_states // p  # even by construction
     dev = cols_l.device
@@ -299,7 +313,7 @@ def _chain_stage_local(grid: ProcessGrid, cols_l, vals_l, n_read_pad: int,
         pred_buf = torch.full((n_states + 1,), -1, dtype=_I32, device=dev)
         pred_buf.scatter_reduce_(0, scat, ids_l, "amax", include_self=True)
         chunk = slice(idx * n_loc, (idx + 1) * n_loc)
-        pred_l = grid.pmax(pred_buf[:n_states], "data")[chunk]
+        pred_l = grid.pmax(pred_buf[:n_states], row_axes)[chunk]
         insuf_buf = torch.zeros(n_states + 1, dtype=torch.float32, device=dev)
         insuf_buf[scat[kept]] = suf[kept]
         insuf_l = psum_all(insuf_buf[:n_states])[chunk]
@@ -330,9 +344,9 @@ def _chain_stage_local(grid: ProcessGrid, cols_l, vals_l, n_read_pad: int,
             role = 0
             for lo, hi in pairs:
                 role = 1 if idx == lo else (-1 if idx == hi else role)
-            r1 = grid.ppermute(k1, "data", perm)
-            r2 = grid.ppermute(k2, "data", perm)
-            r3 = grid.ppermute(k3, "data", perm)
+            r1 = grid.ppermute(k1, row_axes, perm)
+            r2 = grid.ppermute(k2, row_axes, perm)
+            r3 = grid.ppermute(k3, row_axes, perm)
             if role == 0:
                 continue  # an idle shard (odd-P transposition) keeps its block
             c1, c2, c3 = (torch.cat([k1, r1]), torch.cat([k2, r2]),
@@ -343,7 +357,7 @@ def _chain_stage_local(grid: ProcessGrid, cols_l, vals_l, n_read_pad: int,
 
     # chain boundaries: the previous element's labkey, shipped across the
     # shard seam by a one-hop ring shift
-    prev_last = (grid.ppermute(k1[-1:], "data",
+    prev_last = (grid.ppermute(k1[-1:], row_axes,
                                [(t, (t + 1) % p) for t in range(p)])
                  if p > 1 else k1[-1:])
     prev = torch.cat([prev_last, k1[:-1]])
@@ -362,16 +376,18 @@ def _chain_stage_local(grid: ProcessGrid, cols_l, vals_l, n_read_pad: int,
                  .to(_I32) - 1)
     n_chains = int(torch.sum(sums))
     max_chain = int(grid.pmax(torch.amax(torch.where(elig_s, k2, -1))
-                              .reshape(1), "data")[0]) + 1
+                              .reshape(1), row_axes)[0]) + 1
     shards = (k3, elig_s, k2, chain_idx, new_chain, insuf_l, has_edge_l)
     return shards, (n_chains, max_chain, n_branch_cut, pc_iters, cr_iters)
 
 
-def contig_stage_shard_map(s, *, mesh: Optional[ProcessGrid] = None
+def contig_stage_shard_map(s, *, mesh: Optional[ProcessGrid] = None,
+                           row_axes: Optional[Sequence[str]] = None
                            ) -> Tuple[Dict[str, Any], Dict[str, int]]:
-    """The contig chain stage distributed over the grid rows: branch cut →
-    doubling middle → ring-bitonic chain ordering, for a string matrix S
-    (``EllMatrix``, min-plus values) every rank holds.
+    """The contig chain stage distributed over the grid rows (``row_axes``,
+    default JAX's ``infer_row_axes``): branch cut → doubling middle →
+    ring-bitonic chain ordering, for a string matrix S (``EllMatrix``,
+    min-plus values) every rank holds.
 
     Returns ``(st, stats)`` on every rank: ``st`` has the keys of
     ``assembly/contig_gen._order_chains``, global and equal to the
@@ -381,7 +397,8 @@ def contig_stage_shard_map(s, *, mesh: Optional[ProcessGrid] = None
     from .semiring import MP
 
     grid = resolve_grid(mesh, "rows")
-    p = grid.pr
+    row_axes = resolve_row_axes(grid, row_axes)
+    p = grid.size(row_axes)
     n, k = s.cols.shape
     n_read_pad = -(-n // p) * p
     cols, vals = s.cols, s.vals[MP]
@@ -393,12 +410,14 @@ def contig_stage_shard_map(s, *, mesh: Optional[ProcessGrid] = None
         vals = torch.cat([vals, torch.full((pad,) + tuple(vals.shape[1:]),
                                            float("inf"), dtype=vals.dtype,
                                            device=dev)])
-    rows = slice(grid.i * (n_read_pad // p), (grid.i + 1) * (n_read_pad // p))
+    i = grid.axis_index(row_axes)
+    rows = slice(i * (n_read_pad // p), (i + 1) * (n_read_pad // p))
     with span("Contigs", kind="phase", phase="chain_stage", p=p) as sp:
         shards, (n_chains, max_chain, n_branch_cut, pc_iters, cr_iters) = (
-            _chain_stage_local(grid, cols[rows], vals[rows], n_read_pad, n))
+            _chain_stage_local(grid, row_axes, cols[rows], vals[rows],
+                               n_read_pad, n))
         state_s, elig_s, rank_s, chain_idx_s, new_chain, insuf, has_edge = (
-            sp.set_output([grid.all_gather(x, "data") for x in shards]))
+            sp.set_output([grid.all_gather(x, row_axes) for x in shards]))
     n2, n_pad = 2 * n, 2 * n_read_pad
     st = {
         "state_s": state_s[:n2],

@@ -6,8 +6,12 @@ over a ``("data", "model")`` mesh; here each rank of a
 :class:`~.grid.ProcessGrid` holds its own block:
 
 * A distributed matrix (:class:`DistEll`) is CombBLAS's 2D block layout.
-  Row block ``i`` of the ``n`` rows lives on grid row ``i``; the capacity
-  axis is split into ``pc`` column blocks, and rank ``(i, j)`` holds block
+  Its grid rows lie on the grid axes ``row_axes`` (``("data",)``, or
+  ``("pod", "data")`` with row index ``p · n_data + d``) and its grid
+  columns on ``"model"``; a grid axis left out of ``row_axes`` is a replica
+  axis, whose ranks hold the same blocks and do the same work.  Row block
+  ``i`` of the ``n`` rows lives on grid row ``i``; the capacity axis is
+  split into ``pc`` column blocks, and rank ``(i, j)`` holds block
   ``A_ij``: the entries of its rows whose global column id falls in grid
   column ``j``'s range, in ``block_capacity`` slots.  :func:`block_layout`
   is that layout as one global matrix ``(n, pc · block_capacity)``, the
@@ -22,7 +26,8 @@ over a ``("data", "model")`` mesh; here each rank of a
   order-dependent overlap ⊕.  Every rotation is counted where it is
   issued: ``exchange_words_summa`` / ``exchange_rounds_summa`` equal
   JAX's trace-time counts and ``bench_comm_model.words_summa``.
-  Non-square grids route to :func:`summa_allgather`, recorded in stats.
+  Non-square grids and grid rows on two axes route to
+  :func:`summa_allgather`, recorded in stats.
 * :func:`dist_transitive_reduction_ring` and
   :func:`dist_transitive_reduction` are Algorithm 2 on the grid, with the
   square N = R² on the ring or on all-gathered panels, the row max reduced
@@ -37,12 +42,12 @@ shapes: each issues the same collectives, whatever its data holds.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from .backend import dispatch, resolve_backend
-from .grid import ProcessGrid, resolve_grid
+from .grid import ProcessGrid, resolve_grid, resolve_row_axes
 from .semiring import INF, MP, Semiring, minplus_orient_semiring as MPSR
 from .spgemm import spgemm, spgemm_masked
 from .spmat import EllMatrix, NO_COL, from_coo, merge_sorted_rows, prune
@@ -58,11 +63,27 @@ STAGES_PER_CALL = 4
 class DistEll:
     """This rank's block of a 2D-block-distributed ELL matrix (module
     docstring): ``mat`` has the ``n / pr`` rows of grid row ``i`` and the
-    ``block_capacity`` slots of grid column ``j``, with global column
-    ids."""
+    ``block_capacity`` slots of grid column ``j``, with global column ids;
+    the grid rows lie on the grid axes ``row_axes``."""
 
     mat: EllMatrix
     grid: ProcessGrid
+    row_axes: Tuple[str, ...] = ("data",)
+
+    @property
+    def pr(self) -> int:
+        """Grid rows: the product of the ``row_axes`` sizes."""
+        return self.grid.size(self.row_axes)
+
+    @property
+    def pc(self) -> int:
+        """Grid columns: the ``"model"`` size."""
+        return self.grid.pc
+
+    @property
+    def i(self) -> int:
+        """This rank's grid row."""
+        return self.grid.axis_index(self.row_axes)
 
     @property
     def block_capacity(self) -> int:
@@ -119,30 +140,42 @@ def block_layout(mat: EllMatrix, *, pc: int, block_capacity: int,
     return EllMatrix(cols=cols, vals=vals, n_cols=mat.n_cols), overflow
 
 
+def _dist(g: EllMatrix, grid: ProcessGrid, row_axes) -> DistEll:
+    """This rank's block of the global block layout ``g``."""
+    pr, i = grid.size(row_axes), grid.axis_index(row_axes)
+    return DistEll(mat=local_block(g, pr, grid.pc, i, grid.j), grid=grid,
+                   row_axes=row_axes)
+
+
 def distribute_ell_blocks(mat: EllMatrix, *, block_capacity: int,
                           semiring: Semiring,
-                          mesh: Optional[ProcessGrid] = None):
+                          mesh: Optional[ProcessGrid] = None,
+                          row_axes: Sequence[str] = ("data",)):
     """This rank's :class:`DistEll` block of an already-built (row-sorted)
-    ELL matrix that every rank holds (:func:`block_layout`).  Returns
-    ``(DistEll, overflow)``; the rows must divide by the grid rows."""
+    ELL matrix that every rank holds (:func:`block_layout`), with its grid
+    rows on ``row_axes``.  Returns ``(DistEll, overflow)``; the rows must
+    divide by the grid rows."""
     grid = resolve_grid(mesh, "square")
-    n = mat.cols.shape[0]
-    if n % grid.pr:
+    row_axes = resolve_row_axes(grid, row_axes)
+    n, pr = mat.cols.shape[0], grid.size(row_axes)
+    if n % pr:
         raise ValueError(f"distribute_ell_blocks: {n} rows not divisible by "
-                         f"grid rows {grid.pr}")
+                         f"grid rows {pr}")
     g, overflow = block_layout(mat, pc=grid.pc, block_capacity=block_capacity,
                                semiring=semiring)
-    return (DistEll(mat=local_block(g, grid.pr, grid.pc, grid.i, grid.j), grid=grid),
-            overflow)
+    return _dist(g, grid, row_axes), overflow
 
 
 def distribute_ell(rows, cols, vals, valid, *, n_rows: int, n_cols: int,
                    block_capacity: int, semiring: Semiring,
-                   mesh: Optional[ProcessGrid] = None):
+                   mesh: Optional[ProcessGrid] = None,
+                   row_axes: Sequence[str] = ("data",)):
     """This rank's :class:`DistEll` block of a matrix given as COO triplets
-    (every rank holds them all); duplicates merge with ⊕ in input order.
-    Returns ``(DistEll, overflow)``."""
+    (every rank holds them all), with its grid rows on ``row_axes``;
+    duplicates merge with ⊕ in input order.  Returns ``(DistEll,
+    overflow)``."""
     grid = resolve_grid(mesh, "square")
+    row_axes = resolve_row_axes(grid, row_axes)
     pc = grid.pc
     cb = -(-n_cols // pc)
     blk = torch.where(valid, torch.div(cols, cb, rounding_mode="floor"), 0)
@@ -154,8 +187,7 @@ def distribute_ell(rows, cols, vals, valid, *, n_rows: int, n_cols: int,
                   vals=_tree(m2.vals, lambda v: v.reshape(
                       (n_rows, width) + v.shape[2:])),
                   n_cols=n_cols)
-    return (DistEll(mat=local_block(g, grid.pr, pc, grid.i, grid.j), grid=grid),
-            overflow)
+    return _dist(g, grid, row_axes), overflow
 
 
 def collect(d: DistEll) -> EllMatrix:
@@ -164,8 +196,8 @@ def collect(d: DistEll) -> EllMatrix:
     grid = d.grid
 
     def gather(x):
-        return grid.all_gather(grid.all_gather(x, "model", dim=1), "data",
-                               dim=0)
+        return grid.all_gather(grid.all_gather(x, "model", dim=1),
+                               d.row_axes, dim=0)
 
     return EllMatrix(cols=gather(d.mat.cols), vals=_tree(d.mat.vals, gather),
                      n_cols=d.mat.n_cols)
@@ -222,16 +254,17 @@ def _shift(grid: ProcessGrid, x: torch.Tensor, axis: str, by: int):
     return grid.ppermute(x, axis, [((t + by) % n, t) for t in range(n)])
 
 
-def _skew_local(a: EllMatrix, b: EllMatrix, grid: ProcessGrid):
-    """The Cannon skew by exchange: rank ``(i, j)`` receives A block
-    ``(i, (i + j) mod pc)`` along its grid row and B block
-    ``((i + j) mod pr, j)`` along its grid column — the blocks of
-    :func:`_skew_a` / :func:`_skew_b`."""
-    i, j = grid.i, grid.j
+def _skew_local(a: EllMatrix, b: EllMatrix, grid: ProcessGrid,
+                row_axis: str = "data"):
+    """The Cannon skew by exchange: rank ``(i, j)`` (``i`` along
+    ``row_axis``) receives A block ``(i, (i + j) mod pc)`` along its grid
+    row and B block ``((i + j) mod pr, j)`` along its grid column — the
+    blocks of :func:`_skew_a` / :func:`_skew_b`."""
+    i, j = grid.axis_index(row_axis), grid.j
     ac = _shift(grid, a.cols, "model", i)
     av = _tree(a.vals, lambda v: _shift(grid, v, "model", i))
-    bc = _shift(grid, b.cols, "data", j)
-    bv = _tree(b.vals, lambda v: _shift(grid, v, "data", j))
+    bc = _shift(grid, b.cols, row_axis, j)
+    bv = _tree(b.vals, lambda v: _shift(grid, v, row_axis, j))
     return ac, av, bc, bv
 
 
@@ -258,21 +291,37 @@ def _stack(xs):
 
 
 def summa_allgather(a: DistEll, b: DistEll, *, semiring: Semiring,
-                    out_block_capacity: int):
+                    out_block_capacity: int, row_chunk: Optional[int] = None,
+                    build_only: bool = False):
     """C = A ⊗ B by the broadcast-all SUMMA: all-gather A along the grid
-    row (the rank's full block row) and B along the grid column (its full
-    block column), then one local multiply.  Returns ``(DistEll C,
-    overflow)``."""
-    grid = a.grid
-    ac = grid.all_gather(a.mat.cols, "model", dim=1)
-    av = _tree(a.mat.vals, lambda v: grid.all_gather(v, "model", dim=1))
-    bc = grid.all_gather(b.mat.cols, "data", dim=0)
-    bv = _tree(b.mat.vals, lambda v: grid.all_gather(v, "data", dim=0))
-    am = EllMatrix(cols=ac, vals=av, n_cols=bc.shape[0])
-    bm = EllMatrix(cols=bc, vals=bv, n_cols=b.mat.n_cols)
-    c, ovf = spgemm(am, bm, semiring=semiring, capacity=out_block_capacity)
-    ovf = grid.psum(ovf.reshape(1), ("data", "model"))[0]
-    return DistEll(mat=c, grid=grid), ovf
+    row (the rank's full block row) and B along the grid column, over every
+    row axis (its full block column), then one local multiply, bounded by
+    ``row_chunk`` row blocks (the result does not depend on it).  Returns
+    ``(DistEll C, overflow)``.
+
+    ``build_only=True`` returns the rank's program instead, the counterpart
+    of JAX's jitted one: ``fn(a_cols, a_vals, b_cols, b_vals)`` on the
+    rank's local blocks gives ``(c_cols, c_vals, overflow)``."""
+    grid, row_axes = a.grid, a.row_axes
+    n_cols_out = b.mat.n_cols
+
+    def fn(a_cols, a_vals, b_cols, b_vals):
+        ac = grid.all_gather(a_cols, "model", dim=1)
+        av = _tree(a_vals, lambda v: grid.all_gather(v, "model", dim=1))
+        bc = grid.all_gather(b_cols, row_axes, dim=0)
+        bv = _tree(b_vals, lambda v: grid.all_gather(v, row_axes, dim=0))
+        am = EllMatrix(cols=ac, vals=av, n_cols=bc.shape[0])
+        bm = EllMatrix(cols=bc, vals=bv, n_cols=n_cols_out)
+        c, ovf = spgemm(am, bm, semiring=semiring,
+                        capacity=out_block_capacity, row_chunk=row_chunk)
+        ovf = grid.psum(ovf.reshape(1), (*row_axes, "model"))[0]
+        return c.cols, c.vals, ovf
+
+    if build_only:
+        return fn
+    cc, cv, ovf = fn(a.mat.cols, a.mat.vals, b.mat.cols, b.mat.vals)
+    c = EllMatrix(cols=cc, vals=cv, n_cols=n_cols_out)
+    return DistEll(mat=c, grid=grid, row_axes=row_axes), ovf
 
 
 def summa_ring(a: DistEll, b: DistEll, *, semiring: Semiring,
@@ -299,14 +348,18 @@ def summa_ring(a: DistEll, b: DistEll, *, semiring: Semiring,
     ``reference`` backend, or any backend on CPU tensors) pays one per
     stage.
 
-    Non-square grids cannot form the ring: they run
-    :func:`summa_allgather`, recording ``summa_algorithm=
+    Non-square grids and grid rows on two axes cannot form the ring: they
+    run :func:`summa_allgather`, recording ``summa_algorithm=
     "allgather_fallback"`` and the reason, with the exchange stats present
     and zero."""
-    grid = a.grid
-    pr, pc = grid.pr, grid.pc
-    if pr != pc:
+    grid, row_axes = a.grid, a.row_axes
+    pr, pc = a.pr, a.pc
+    reason = None
+    if len(row_axes) != 1:
+        reason = f"multi-axis grid rows {row_axes}"
+    elif pr != pc:
         reason = f"non-square grid {pr}x{pc}"
+    if reason is not None:
         out, ovf = summa_allgather(a, b, semiring=semiring,
                                    out_block_capacity=out_block_capacity)
         return out, ovf, validated({
@@ -325,7 +378,8 @@ def summa_ring(a: DistEll, b: DistEll, *, semiring: Semiring,
     resolved = resolve_backend(backend, dev)
     op = dispatch("spgemm_ring_stages", resolved, dev)
     g = max(1, min(stages_per_call, pc))
-    i, j = grid.i, grid.j
+    (row_axis,) = row_axes
+    i, j = a.i, grid.j
     left = [((t + 1) % pc, t) for t in range(pc)]  # rotate left / up
     acct = {"words": 0, "rounds": 0}
 
@@ -334,11 +388,11 @@ def summa_ring(a: DistEll, b: DistEll, *, semiring: Semiring,
         acct["rounds"] += 1
         return (grid.ppermute(ac, "model", left),
                 _tree(av, lambda v: grid.ppermute(v, "model", left)),
-                grid.ppermute(bc, "data", left),
-                _tree(bv, lambda v: grid.ppermute(v, "data", left)))
+                grid.ppermute(bc, row_axis, left),
+                _tree(bv, lambda v: grid.ppermute(v, row_axis, left)))
 
     with span("SpGEMM", kind="phase", phase="skew"):
-        cur = _skew_local(a.mat, b.mat, grid)
+        cur = _skew_local(a.mat, b.mat, grid, row_axis)
     with span("SpGEMM", kind="phase", phase="ring", pc=pc,
               stages_per_call=g) as sp:
         chunks_cols, chunks_vals = [], []
@@ -383,7 +437,7 @@ def summa_ring(a: DistEll, b: DistEll, *, semiring: Semiring,
             mc, mv, mo = merge_sorted_rows(merged_cols, merged_vals,
                                            capacity=out_block_capacity,
                                            semiring=semiring)
-        ovf = grid.psum((ovf + mo).reshape(1), ("data", "model"))[0]
+        ovf = grid.psum((ovf + mo).reshape(1), (row_axis, "model"))[0]
         sp.set_output((mc, ovf))
     fused = resolved == "cuda" and dev.type == "cuda"  # the kernel ran
     stats = validated({
@@ -396,7 +450,7 @@ def summa_ring(a: DistEll, b: DistEll, *, semiring: Semiring,
         "spgemm_hbm_round_trips_reference": pc,
     }, context="summa_ring", require_groups=("summa_exchange",))
     c = EllMatrix(cols=mc, vals=mv, n_cols=n_cols_out)
-    return DistEll(mat=c, grid=grid), ovf, stats
+    return DistEll(mat=c, grid=grid, row_axes=row_axes), ovf, stats
 
 
 def _pad_rows(mat: EllMatrix, mult: int, semiring: Semiring) -> EllMatrix:
@@ -418,10 +472,14 @@ def overlap_spgemm_shard_map(a: EllMatrix, b: EllMatrix, *,
                              semiring: Semiring, operand_semiring: Semiring,
                              capacity: int,
                              mesh: Optional[ProcessGrid] = None,
+                             row_axes: Optional[Sequence[str]] = None,
                              backend: str = "auto",
                              stages_per_call: int = STAGES_PER_CALL):
     """Distributed C = A ⊗ B for operands every rank holds — the overlap
-    stage's ``distribution="shard_map"`` path.
+    stage's ``distribution="shard_map"`` path.  The grid rows lie on
+    ``row_axes`` (default: the grid's ``("pod", "data")`` axes, JAX's
+    ``infer_row_axes``; on two axes the ring takes the recorded
+    fallback).
 
     Pads both operands' rows to a multiple of the grid rows, distributes
     them at their full source capacities (so distribution never
@@ -432,16 +490,18 @@ def overlap_spgemm_shard_map(a: EllMatrix, b: EllMatrix, *,
     ``operand_semiring`` supplies the operands' empty-slot zero.  Returns
     ``(EllMatrix, overflow, stats)`` on every rank."""
     grid = resolve_grid(mesh, "square")
+    row_axes = resolve_row_axes(grid, row_axes)
+    pr = grid.size(row_axes)
     n_rows = a.cols.shape[0]
-    a_pad = _pad_rows(a, grid.pr, operand_semiring)
-    b_pad = _pad_rows(b, grid.pr, operand_semiring)
+    a_pad = _pad_rows(a, pr, operand_semiring)
+    b_pad = _pad_rows(b, pr, operand_semiring)
     with span("SpGEMM", kind="phase", phase="distribute") as sp:
         da, ovf_da = distribute_ell_blocks(
             a_pad, block_capacity=a.capacity, semiring=operand_semiring,
-            mesh=grid)
+            mesh=grid, row_axes=row_axes)
         db, ovf_db = distribute_ell_blocks(
             b_pad, block_capacity=b.capacity, semiring=operand_semiring,
-            mesh=grid)
+            mesh=grid, row_axes=row_axes)
         sp.set_output((da.mat.cols, db.mat.cols))
     cd, ovf_ring, stats = summa_ring(da, db, semiring=semiring,
                                      out_block_capacity=capacity,
@@ -461,9 +521,10 @@ def overlap_spgemm_shard_map(a: EllMatrix, b: EllMatrix, *,
 # ---------------------------------------------------------------------------
 
 
-def _nnz(grid: ProcessGrid, cols: torch.Tensor) -> int:
+def _nnz(d: DistEll, cols: torch.Tensor) -> int:
+    """The global nnz of the blocks ``cols`` laid out as ``d``'s."""
     local = torch.sum(cols >= 0).to(_I32).reshape(1)
-    return int(grid.psum(local, ("data", "model"))[0])
+    return int(d.grid.psum(local, (*d.row_axes, "model"))[0])
 
 
 def _prune_step(grid: ProcessGrid, r: EllMatrix, got: torch.Tensor,
@@ -501,7 +562,7 @@ def dist_transitive_reduction_ring(r: DistEll, fuzz: float = 200.0, *,
         n_block_capacity = min(kb * kb, 4 * kb)
     fuzz_t = torch.tensor(fuzz, dtype=torch.float32, device=r.mat.cols.device)
     cur = r
-    nnz_cur = _nnz(grid, r.mat.cols)
+    nnz_cur = _nnz(r, r.mat.cols)
     prev, it = -1, 0
     stats: Dict = {**schema.zero_defaults("summa_exchange"),
                    "summa_algorithm": None}
@@ -511,57 +572,75 @@ def dist_transitive_reduction_ring(r: DistEll, fuzz: float = 200.0, *,
                                  backend=backend)
         got, found = n_sq.mat.lookup(MPSR, cur.mat.cols)
         pruned = _prune_step(grid, cur.mat, got[MP], found, fuzz_t)
-        cur = DistEll(mat=pruned, grid=grid)
+        cur = DistEll(mat=pruned, grid=grid, row_axes=r.row_axes)
         stats["exchange_words_summa"] += st["exchange_words_summa"]
         stats["exchange_rounds_summa"] += st["exchange_rounds_summa"]
         stats["summa_algorithm"] = st["summa_algorithm"]
-        prev, nnz_cur, it = nnz_cur, _nnz(grid, pruned.cols), it + 1
+        prev, nnz_cur, it = nnz_cur, _nnz(r, pruned.cols), it + 1
     return cur, it, nnz_cur, stats
 
 
 def dist_transitive_reduction(r: DistEll, fuzz: float = 200.0, *,
                               n_block_capacity: Optional[int] = None,
                               max_iters: int = 10, fused: bool = False,
+                              row_chunk: Optional[int] = None,
+                              build_only: bool = False,
                               summa: str = "allgather"):
     """Distributed Algorithm 2.  Returns ``(DistEll, iters, nnz)``.
 
     ``summa="allgather"`` squares on all-gathered panels each pass (the
-    rank's full block row of R times its full block column);
-    ``fused=True`` takes the sampled square N ∘ pattern(R)
-    (``spgemm_masked``: no pattern growth, no stage sort).
-    ``summa="ring"`` runs :func:`dist_transitive_reduction_ring` and does
-    not take ``fused``."""
+    rank's full block row of R times its full block column, over every row
+    axis); ``fused=True`` takes the sampled square N ∘ pattern(R)
+    (``spgemm_masked``: no pattern growth, no stage sort).  ``row_chunk``
+    bounds the local multiply by row blocks; the result does not depend on
+    it.  ``build_only=True`` returns the rank's program instead, the
+    counterpart of JAX's jitted one: ``fn(r_cols, r_vals)`` on the rank's
+    block (``r_vals`` the ``(rows, slots, 4)`` min-plus values) gives
+    ``(s_cols, s_vals, iters, nnz)``.  ``summa="ring"`` runs
+    :func:`dist_transitive_reduction_ring` and takes none of ``fused``,
+    ``row_chunk`` and ``build_only``."""
     if summa not in ("allgather", "ring"):
         raise ValueError(f"unknown summa variant {summa!r}")
     if summa == "ring":
-        if fused:
-            raise ValueError("summa='ring' does not take fused")
+        if fused or build_only or row_chunk is not None:
+            raise ValueError("summa='ring' supports neither fused nor "
+                             "row_chunk nor build_only")
         out, iters, nnz, _ = dist_transitive_reduction_ring(
             r, fuzz, n_block_capacity=n_block_capacity, max_iters=max_iters)
         return out, iters, nnz
-    grid = r.grid
+    grid, row_axes = r.grid, r.row_axes
     kb = r.block_capacity
     if n_block_capacity is None:
         n_block_capacity = min(kb * kb, 4 * kb)
     n_total = r.mat.n_cols
-    fuzz_t = torch.tensor(fuzz, dtype=torch.float32, device=r.mat.cols.device)
-    cur = r.mat
-    nnz_cur = _nnz(grid, cur.cols)
-    prev, it = -1, 0
-    while nnz_cur != prev and it < max_iters:
-        ac = grid.all_gather(cur.cols, "model", dim=1)
-        av = grid.all_gather(cur.vals[MP], "model", dim=1)
-        bc = grid.all_gather(cur.cols, "data", dim=0)
-        bv = grid.all_gather(cur.vals[MP], "data", dim=0)
-        a_loc = EllMatrix(cols=ac, vals={MP: av}, n_cols=n_total)
-        b_loc = EllMatrix(cols=bc, vals={MP: bv}, n_cols=n_total)
-        if fused:
-            got = spgemm_masked(a_loc, b_loc, cur, semiring=MPSR).vals
-            found = cur.mask
-        else:
-            n_loc, _ = spgemm(a_loc, b_loc, semiring=MPSR,
-                              capacity=n_block_capacity)
-            got, found = n_loc.lookup(MPSR, cur.cols)
-        cur = _prune_step(grid, cur, got[MP], found, fuzz_t)
-        prev, nnz_cur, it = nnz_cur, _nnz(grid, cur.cols), it + 1
-    return DistEll(mat=cur, grid=grid), it, nnz_cur
+
+    def fn(r_cols, r_vals):
+        fuzz_t = torch.tensor(fuzz, dtype=torch.float32, device=r_cols.device)
+        cur = EllMatrix(cols=r_cols, vals={MP: r_vals}, n_cols=n_total)
+        nnz_cur = _nnz(r, cur.cols)
+        prev, it = -1, 0
+        while nnz_cur != prev and it < max_iters:
+            ac = grid.all_gather(cur.cols, "model", dim=1)
+            av = grid.all_gather(cur.vals[MP], "model", dim=1)
+            bc = grid.all_gather(cur.cols, row_axes, dim=0)
+            bv = grid.all_gather(cur.vals[MP], row_axes, dim=0)
+            a_loc = EllMatrix(cols=ac, vals={MP: av}, n_cols=n_total)
+            b_loc = EllMatrix(cols=bc, vals={MP: bv}, n_cols=n_total)
+            if fused:
+                got = spgemm_masked(a_loc, b_loc, cur, semiring=MPSR,
+                                    row_chunk=row_chunk).vals
+                found = cur.mask
+            else:
+                n_loc, _ = spgemm(a_loc, b_loc, semiring=MPSR,
+                                  capacity=n_block_capacity,
+                                  row_chunk=row_chunk)
+                got, found = n_loc.lookup(MPSR, cur.cols)
+            cur = _prune_step(grid, cur, got[MP], found, fuzz_t)
+            prev, nnz_cur, it = nnz_cur, _nnz(r, cur.cols), it + 1
+        return cur.cols, cur.vals[MP], it, nnz_cur
+
+    if build_only:
+        return fn
+    cols, vals, it, nnz = fn(r.mat.cols, r.mat.vals[MP])
+    out = EllMatrix(cols=cols, vals={MP: vals}, n_cols=n_total)
+    return DistEll(mat=out, grid=grid, row_axes=row_axes), it, nnz

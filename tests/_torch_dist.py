@@ -129,6 +129,33 @@ def job_grid(inputs):
     return out
 
 
+def job_grid_pod(inputs):
+    """The collectives of a ``("pod", "data", "model")`` grid over each
+    axis and over ``("pod", "data")``, with the grid's byte counts."""
+    from repro_torch.core.grid import POD_AXES, ProcessGrid
+
+    g = ProcessGrid(*inputs["shape"], axis_names=POD_AXES)
+    rank = dist.get_rank()
+    out = {"coords": g.coords, "pr": g.pr, "pc": g.pc, "i": g.i, "j": g.j,
+           "row_axes": g.row_axes}
+    x = torch.tensor([10 * rank + 1], dtype=torch.int32)
+    for axes in ("pod", "data", "model", ("pod", "data")):
+        key = axes if isinstance(axes, str) else "+".join(axes)
+        n = g.size(axes)
+        res = {"index": g.axis_index(axes), "members": g.members(axes)}
+        res["left"] = int(g.ppermute(x, axes, [((t + 1) % n, t)
+                                               for t in range(n)])[0])
+        res["sum"] = int(g.psum(x, axes)[0])
+        res["max"] = int(g.pmax(x, axes)[0])
+        res["any"] = bool(g.psum(torch.tensor([rank == 0]), axes)[0])
+        res["gather"] = _np(g.all_gather(
+            torch.tensor([[rank, rank]], dtype=torch.int32), axes, dim=0))
+        out[key] = res
+    out["bytes"] = g.reset_collective_bytes()
+    out["bytes_after_reset"] = dict(g.collective_bytes)
+    return out
+
+
 def job_summa(inputs):
     """Ring SUMMA on the square grid: the overlap product through the
     pipeline's entry point, the min-plus ring and all-gather products, and
@@ -212,6 +239,97 @@ def job_tr(inputs):
     return out
 
 
+def job_multipod(inputs):
+    """The multipod cases of JAX's distributed tests on a ``(2, 2, 2)``
+    ``("pod", "data", "model")`` grid: the all-gather SUMMA with grid rows
+    on ``("pod", "data")``, the ring with rows on ``("data",)`` and its
+    recorded fallback on ``("pod", "data")``, both distributed TRs, the
+    doubling middle, the contig chain stage and the distributed x-drop."""
+    from repro_torch.core import summa as S
+    from repro_torch.core.align_dist import align_bucket_shard_map
+    from repro_torch.core.components_dist import (
+        contig_stage_shard_map,
+        doubling_shard_map,
+    )
+    from repro_torch.core.grid import POD_AXES, ProcessGrid
+    from repro_torch.core.semiring import MP
+    from repro_torch.core.semiring import minplus_orient_semiring as MPSR
+
+    grid = ProcessGrid.of_shape((2, 2, 2), POD_AXES)
+    out = {}
+
+    def dist_of(coo, row_axes):
+        t = {k: torch.from_numpy(v) for k, v in coo.items()}
+        d, ovf = S.distribute_ell(t["rows"], t["cols"], {MP: t["vals"]},
+                                  t["ok"], n_rows=16, n_cols=16,
+                                  block_capacity=8, semiring=MPSR, mesh=grid,
+                                  row_axes=row_axes)
+        assert int(ovf) == 0
+        return d
+
+    rd = dist_of(inputs["ag"], ("pod", "data"))
+    c, ovf = S.summa_allgather(rd, rd, semiring=MPSR, out_block_capacity=16)
+    out["allgather"] = (_ell_np(S.collect(c)), int(ovf))
+    for name, row_axes in (("ring_data", ("data",)),
+                           ("ring_pod_data", ("pod", "data"))):
+        rd = dist_of(inputs["ring"], row_axes)
+        c, ovf, st = S.summa_ring(rd, rd, semiring=MPSR,
+                                  out_block_capacity=16)
+        out[name] = (_ell_np(S.collect(c)), int(ovf), st)
+        for fused in (False, True):
+            s, it, nnz = S.dist_transitive_reduction(rd, 50.0, fused=fused)
+            out[f"tr_{name}_{fused}"] = (_ell_np(S.collect(s)), it, nnz)
+        s, it, nnz, st = S.dist_transitive_reduction_ring(rd, 50.0)
+        out[f"trring_{name}"] = (_ell_np(S.collect(s)), it, nnz, st)
+
+    d = doubling_shard_map(torch.from_numpy(inputs["succ"]),
+                           torch.from_numpy(inputs["pred"]), mesh=grid)
+    out["doubling"] = _np(d)
+    st, xstats = contig_stage_shard_map(_ell(inputs["S"]), mesh=grid)
+    out["contig_stage"] = (_np(st), xstats)
+
+    cand = {k: torch.from_numpy(v) for k, v in inputs["cand"].items()}
+    res, stats = align_bucket_shard_map(
+        torch.from_numpy(inputs["codes"]), cand, k=inputs["k"], mesh=grid,
+        **inputs["kw"])
+    out["align"] = {"res": _np(tuple(res)), "stats": stats}
+    return out
+
+
+def job_cell(inputs):
+    """The dibella cell at ``reduced()`` on the square grid: each stage's
+    specs and, for each ``row_chunk``, the rank's outputs and grid
+    position."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.grid import ProcessGrid
+    from repro_torch.launch.dibella_cell import (
+        build_cells,
+        local_inputs,
+        make_global_inputs,
+    )
+
+    cfg = reduced_config("dibella")
+    grid = ProcessGrid.square()
+    args = local_inputs(make_global_inputs(cfg, grid.pc, seed=inputs["seed"],
+                                           device="cpu"), grid)
+    out = {"ij": (grid.i, grid.j)}
+    for rc in inputs["row_chunks"]:
+        cells = build_cells(cfg, grid, row_chunk=rc)
+        out["specs"] = {k: _np([(tuple(t.shape), str(t.dtype))
+                                for t in _leaves(v[1])])
+                        for k, v in cells.items()}
+        out[rc] = {k: _np(cells[k][0](*args[k])) for k in cells}
+    return out
+
+
+def _leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    return [t for v in x for t in _leaves(v)]
+
+
 def job_align(inputs):
     """The distributed x-drop over the default P×1 grid."""
     from repro_torch.core.align_dist import align_bucket_shard_map
@@ -248,15 +366,26 @@ def job_contigs(inputs):
 
 def job_assemble(inputs):
     """``assemble(distribution="shard_map", device="cpu")`` for each
-    backend in ``inputs["backends"]``."""
+    backend in ``inputs["backends"]``, on the grid ``inputs["grid"]``
+    (``(shape, axes)``; default none: JAX's default grids).  Results are
+    keyed by backend, or, for each grid-row choice of
+    ``inputs["row_axes_list"]``, by ``(backend, row_axes)``."""
     from repro_torch.assembly.pipeline import PipelineConfig, assemble
+    from repro_torch.core.grid import ProcessGrid
 
+    mesh = (ProcessGrid.of_shape(*inputs["grid"]) if inputs.get("grid")
+            else None)
+    runs = [(b, None, b) for b in inputs["backends"]]
+    if inputs.get("row_axes_list"):
+        runs = [(b, ra, (b, ra)) for b in inputs["backends"]
+                for ra in inputs["row_axes_list"]]
     out = {}
-    for backend in inputs["backends"]:
+    for backend, row_axes, key in runs:
         cfg = PipelineConfig(**{**inputs["cfg"], "backend": backend,
-                                "distribution": "shard_map", "device": "cpu"})
+                                "distribution": "shard_map", "device": "cpu",
+                                "mesh": mesh, "row_axes": row_axes})
         res = assemble(inputs["codes"], inputs["lengths"], cfg)
-        out[backend] = {
+        out[key] = {
             "R": _ell_np(res.r_graph), "S": _ell_np(res.s_graph),
             "stats": dict(res.stats), "contained": _np(res.contained),
             "contigs": [(c.reads, c.length, c.codes) for c in res.contigs],
