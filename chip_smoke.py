@@ -89,7 +89,30 @@ exit, no result line) on any check that does not hold:
              reads) ``row_chunk=None`` must equal ``row_chunk=4096``; then
              the cell at ``--dibella-reads`` reads (the full config's
              4,194,304 by default): per-stage ms, the allocator's peak and
-             the record's roofline terms.
+             the record's roofline terms;
+7. serve   — the language-model serving path (``repro_torch.models``,
+             ``launch/serve.py``: torch ops, no hand kernel; the JAX LM path
+             reaches no Pallas kernel either, and the launch counts, set to
+             0 before, must stay 0).  7a: qwen3-4b at full size (36 layers,
+             d_model 2560, 4.411 B parameters), ``serve`` at batch 8, prompt
+             512, 64 generated tokens after a warm-up (as ``python -m
+             repro_torch.launch.serve --arch qwen3-4b --batch 8
+             --prompt-len 512 --gen 64``): prefill ms beside its bf16 FLOP
+             bound at 989 TFLOP/s, decode ms a step and tokens/s beside the
+             byte bound a step (weights read once, the whole KV cache), the
+             allocator's peak, the first tokens.  7b: prefill(S) + decode(1)
+             logits against the last logits of forward(S + 1), S = 1040
+             (past gemma3's and hymba's 1024 window), batch 8: qwen3-4b at
+             full depth, the other nine at full width with 2 layers (6 for
+             gemma3): finite, rtol = atol = 0.15, argmax equal on every row
+             whose top-2 margin exceeds 0.3 (MoE: the rows whose last token
+             both runs route alike; the capacity depends on a call's
+             tokens).  7c: every arch's ``reduced()`` in f32, the same
+             parameters made on the CPU and moved: prefill and 4
+             teacher-forced decode steps on the card and the CPU, max |diff|
+             ≤ 1e-3 and equal greedy tokens; then in bf16 within 0.15 (MoE:
+             the card takes the CPU's top-k, and every place its own differs
+             must be a near tie).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -220,6 +243,321 @@ def ptxas_summary(log: str):
             spill = line.strip()
         elif "registers" in line:
             out[entry] = f"{line.split(':', 1)[-1].strip()}; {spill}"
+    return out
+
+
+# --- phase 7: the language-model serving path ------------------------------
+
+BF16_TFLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+SERVE_ARGV = ["--arch", "qwen3-4b", "--batch", "8", "--prompt-len", "512",
+              "--gen", "64"]
+# past gemma3's and hymba's window; 8 rows, so that row 0 of an MoE arch
+# stays inside the capacity in both runs (capacity scales with the call's
+# tokens, and row 0 comes first in the dispatch order)
+DECODE_CHECK = dict(batch=8, seq=1040)
+CARD_CPU = dict(batch=2, seq=40, decode=4)
+
+
+def lm_bounds(cfg, params, batch: int, prompt_len: int, max_len: int):
+    """Least times of qwen3-4b's prefill (bf16 FLOPs at 989 TFLOP/s: the
+    matmul weights once a token, the causal attention products, one logits
+    row a sequence) and of one decode step (HBM bytes at 3.35 TB/s: every
+    parameter read once but the embedding, of which the batch's rows; the
+    whole ``max_len`` KV cache that ``decode_attention`` reads; the new
+    keys and values and the f32 logits written)."""
+    import torch
+
+    named = dict(params.named_parameters())
+    mm = sum(p.numel() for n, p in named.items()
+             if p.ndim >= 2 and n not in ("embed", "unembed"))
+    L, hq, hkv, dh = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    toks = batch * prompt_len
+    attn = 2 * 2 * batch * hq * dh * L * prompt_len * (prompt_len + 1) // 2
+    flops = 2 * mm * toks + attn + 2 * batch * cfg.d_model * cfg.vocab_padded
+    w_bytes = sum(p.numel() * p.element_size() for n, p in named.items()
+                  if n != "embed")
+    emb_bytes = batch * cfg.d_model * named["unembed"].element_size()
+    elt = torch.finfo(cfg.torch_dtype).bits // 8
+    kv_read = 2 * L * batch * max_len * hkv * dh * elt
+    kv_write = 2 * L * batch * hkv * dh * elt
+    logits = batch * cfg.vocab_padded * 4
+    step_bytes = w_bytes + emb_bytes + kv_read + kv_write + logits
+    return {"prefill_flops": flops,
+            "prefill_bound_ms": flops / BF16_TFLOPS * 1e3,
+            "decode_step_bytes": step_bytes, "weight_bytes": w_bytes,
+            "kv_read_bytes": kv_read,
+            "decode_step_bound_ms": step_bytes / HBM_BYTES_S * 1e3}
+
+
+class RouteLog:
+    """Every MoE layer's routing in the order the forward visits them: the
+    port's own top-k (and, when ``forced`` holds another run's log, that
+    run's top-k is used instead, with the port's softmax weights at it)."""
+
+    def __init__(self, moe_mod, forced=None):
+        self.mod, self.forced, self.records = moe_mod, forced, []
+        self._orig = moe_mod.router_topk
+
+    def __enter__(self):
+        import torch
+
+        queue = list(self.forced.records) if self.forced else None
+
+        def topk(x, w_router, n_real, top_k):
+            w, idx = self._orig(x, w_router, n_real, top_k)
+            logits = torch.matmul(x.float(), w_router.float())
+            self.records.append((idx.cpu(), logits[:, :n_real].cpu()))
+            if queue is not None:
+                idx = queue.pop(0)[0].to(x.device)
+                w = torch.softmax(torch.gather(logits, 1, idx), dim=-1)
+            return w, idx
+
+        self.mod.router_topk = topk
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.router_topk = self._orig
+
+
+def flips_are_ties(own: "RouteLog", ref: "RouteLog", top_k: int):
+    """Where ``own``'s top-k differs from ``ref``'s: (gap, logit difference)
+    of each token, and whether every gap is at most twice the difference
+    (the two runs' router inputs differ enough to reorder the experts)."""
+    import torch
+
+    out = []
+    for (i_a, l_a), (i_b, l_b) in zip(own.records, ref.records):
+        diff = (i_a != i_b).any(-1)
+        for t in torch.nonzero(diff).flatten().tolist():
+            top = torch.sort(l_b[t].double(), descending=True).values[:top_k + 1]
+            gap = float((top[:-1] - top[1:]).min())
+            out.append((gap, float((l_a[t] - l_b[t]).abs().max())))
+    return out, all(g <= 2 * d for g, d in out)
+
+
+def serve_phase(args, check, device: str = "cuda") -> None:
+    """Phase 7: qwen3-4b served at full size (7a), the decode check of every
+    arch at full width (7b), and ``device`` against the CPU (7c).  Only
+    ``"cuda"`` is a measurement; another device rehearses the control flow."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCH_NAMES, get_config, reduced_config
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import model as TM
+    from repro_torch.models import moe as TMoe
+    from repro_torch.models.layers import param_count
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    # --- 7a. qwen3-4b at full size ---
+    sargs = SV.parse_args(SERVE_ARGV + ["--seed", str(args.seed),
+                                        "--device", device])
+    base = 0
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # earlier phases' live tensors
+    t0 = time.perf_counter()
+    cfg, params, prompt = SV.setup(sargs)
+    if cuda:
+        torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_stored = param_count(params)
+    check(cfg.param_count() == 4_411_228_160 and (
+        cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+        cfg.d_ff, cfg.vocab_padded) == (36, 2560, 32, 8, 128, 9728, 152064),
+        "qwen3-4b is not at its published widths")
+    warm = SV.serve(cfg, params, prompt, gen=4)  # cuBLAS handles, allocator
+    res = SV.serve(cfg, params, prompt, gen=sargs.gen)
+    toks = res.tokens
+    check(toks.shape == (sargs.batch, sargs.gen)
+          and bool(((toks >= 0) & (toks < cfg.vocab_padded)).all()),
+          f"serve tokens {tuple(toks.shape)} out of range")
+    check(torch.equal(warm.tokens, toks[:, :4]),
+          "serve is not deterministic: the warm-up's tokens differ")
+    max_len = sargs.prompt_len + sargs.gen
+    bd = lm_bounds(cfg, params, sargs.batch, sargs.prompt_len, max_len)
+    step_ms = res.decode_ms / res.decode_steps
+    rec = {
+        "arch": cfg.name, "batch": sargs.batch, "prompt_len": sargs.prompt_len,
+        "gen": sargs.gen, "param_count": cfg.param_count(),
+        "stored_params": n_stored, "init_s": t_init,
+        "prefill_ms": res.prefill_ms,
+        "prefill_bound_ms": bd["prefill_bound_ms"],
+        "prefill_flops": bd["prefill_flops"],
+        "decode_step_ms": step_ms,
+        "decode_step_bound_ms": bd["decode_step_bound_ms"],
+        "decode_step_bytes": bd["decode_step_bytes"],
+        "weight_bytes": bd["weight_bytes"], "kv_read_bytes": bd["kv_read_bytes"],
+        "tokens_per_s": res.tokens_per_s, "peak_bytes": res.peak_bytes,
+        "peak_above_start_bytes": (None if res.peak_bytes is None
+                                   else res.peak_bytes - base),
+        "first_tokens": toks[0, :16].tolist()}
+    print(f"[serve] 7a {json.dumps(rec)}", flush=True)
+    del params, prompt, warm, res
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # --- 7b. prefill(S) + decode(1) against forward(S + 1) ---
+    b, s = DECODE_CHECK["batch"], DECODE_CHECK["seq"]
+    for arch in ARCH_NAMES:
+        full = get_config(arch)
+        cfg = full if arch == "qwen3-4b" else dataclasses.replace(
+            full, n_layers=6 if arch == "gemma3-4b" else 2)
+        t0 = time.perf_counter()
+        params = TM.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(args.seed))
+        rng = np.random.default_rng(args.seed + 1)
+        if cfg.frontend == "token":
+            seq = torch.from_numpy(rng.integers(1, cfg.vocab_size, (b, s + 1))
+                                   .astype(np.int32)).to(dev)
+            whole, pre, last = ({"tokens": seq}, {"tokens": seq[:, :s]},
+                                {"tokens": seq[:, s:]})
+        else:
+            seq = torch.from_numpy(rng.normal(0, 1, (b, s + 1, cfg.d_model))
+                                   ).to(torch.bfloat16).to(dev)
+            whole, pre, last = ({"embeddings": seq}, {"embeddings": seq[:, :s]},
+                                {"embeddings": seq[:, s:]})
+        with RouteLog(TMoe) as r_full:
+            x_full, _ = TM.forward(params, whole, cfg)
+            l_full = TM.unembed_logits(x_full[:, -1], params.unembed)
+        caches = TM.init_cache(cfg, b, s + 4, device=dev)
+        with RouteLog(TMoe) as r_inc:
+            _, caches = TM.make_prefill_step(cfg)(params, caches, pre)
+            l_dec, _ = TM.make_serve_step(cfg)(params, caches, last, s)
+        l_full, l_dec = l_full.cpu(), l_dec.cpu()
+        check(bool(torch.isfinite(l_full).all() and torch.isfinite(l_dec).all()),
+              f"7b {arch}: non-finite logits")
+        rows = torch.ones(b, dtype=torch.bool)
+        routing = ""
+        if cfg.family == "moe":
+            # capacity depends on the tokens of a call, so routing may
+            # differ between the runs; compare the rows whose last token
+            # is routed alike
+            rows, earlier = routed_alike_rows(r_full, r_inc, cfg, b, s)
+            routing = (f", last token routed alike {rows.tolist()}, earlier "
+                       f"(token, layer) pairs routed otherwise "
+                       f"{earlier.tolist()}")
+        check(bool(rows.any()), f"7b {arch}: no row routed alike")
+        err = (l_dec - l_full).abs()
+        ok = bool((err <= 0.15 + 0.15 * l_full.abs())[rows].all())
+        top2 = torch.topk(l_full, 2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        agree = l_dec.argmax(-1) == l_full.argmax(-1)
+        bad = [(r, float(margin[r])) for r in range(b)
+               if rows[r] and not agree[r] and margin[r] > 0.3]
+        for r in range(b):
+            if rows[r] and not agree[r]:
+                print(f"[serve] 7b {arch} row {r}: argmax differs, top-2 "
+                      f"margin {float(margin[r]):.4f}", flush=True)
+        print(f"[serve] 7b {arch}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, batch {b}, S {s}: max |decode - forward| "
+              f"{float(err[rows].max()):.4f} on rows {rows.tolist()}, argmax "
+              f"agree {agree.tolist()}{routing}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        check(ok, f"7b {arch}: decode logits outside rtol = atol = 0.15")
+        check(not bad, f"7b {arch}: argmax differs on rows with margin > 0.3: {bad}")
+        del params, caches, x_full
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # --- 7c. the card against the CPU, reduced configs ---
+    b, s, nd = CARD_CPU["batch"], CARD_CPU["seq"], CARD_CPU["decode"]
+    for arch in ARCH_NAMES:
+        line = {}
+        for dtype, tol in (("float32", 1e-3), ("bfloat16", 0.15)):
+            cfg = dataclasses.replace(reduced_config(arch), dtype=dtype)
+            cpu = TM.init_params(cfg, torch.Generator().manual_seed(args.seed))
+            card = copy.deepcopy(cpu).to(dev)
+            rng = np.random.default_rng(args.seed + 2)
+            toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (b, s + nd))
+                                    .astype(np.int32))
+            emb = torch.from_numpy(rng.normal(0, 1, (b, s, cfg.d_model))
+                                   ).to(torch.bfloat16)
+            runs = {}
+            ref_log = None
+            for where, model in (("cpu", cpu), ("card", card)):
+                d = torch.device("cpu") if where == "cpu" else dev
+                forced = ref_log if dtype == "bfloat16" else None
+                with RouteLog(TMoe, forced) as log:
+                    runs[where] = teacher_forced(TM, SV, cfg, model, toks, emb,
+                                                 s, nd, d)
+                if where == "cpu":
+                    ref_log = log
+            a, c = runs["cpu"], runs["card"]
+            diff = max(float((x - y).abs().max()) for x, y in zip(a, c))
+            greedy = all(torch.equal(x.argmax(-1), y.argmax(-1))
+                         for x, y in zip(a, c))
+            line[dtype] = {"max_abs_diff": diff, "greedy_equal": greedy}
+            if dtype == "float32":
+                check(diff <= tol and greedy,
+                      f"7c {arch} f32: card vs CPU max |diff| {diff}, greedy "
+                      f"equal {greedy}")
+            else:
+                if cfg.family == "moe":
+                    flips, ties = flips_are_ties(log, ref_log, cfg.top_k)
+                    line[dtype]["routing_flips"] = flips
+                    check(ties, f"7c {arch} bf16: a routing flip that is "
+                          f"no near tie: {flips}")
+                check(all(bool((y - x).abs().le(tol + tol * x.abs()).all())
+                          for x, y in zip(a, c)),
+                      f"7c {arch} bf16: card vs CPU outside 0.15 ({diff})")
+        print(f"[serve] 7c {arch}: {json.dumps(line)}", flush=True)
+
+
+def routed_alike_rows(r_full, r_inc, cfg, b: int, s: int):
+    """Rows whose last token forward(S + 1) and prefill(S) + decode(1)
+    route alike in every MoE layer (the same top-k, and the same of them
+    kept by the capacity, which depends on the call's token count), and per
+    row the count of earlier (token, layer) pairs routed otherwise (they
+    reach the last token only through attention)."""
+    import torch
+
+    from repro_torch.models import moe as TMoe
+
+    n = len(r_full.records)
+    check(len(r_inc.records) == 2 * n, "7b: MoE layer count differs")
+    e = cfg.n_experts_padded
+
+    def keep(idx, t):
+        return TMoe.dispatch_slots(idx, e, TMoe.moe_capacity(
+            idx.shape[0], cfg.top_k, e)).keep.reshape(b, t, -1)
+
+    rows = torch.ones(b, dtype=torch.bool)
+    earlier = torch.zeros(b, dtype=torch.long)
+    for li in range(n):
+        i_f = r_full.records[li][0]
+        i_p, i_d = r_inc.records[li][0], r_inc.records[n + li][0]
+        idx_inc = torch.cat([i_p.reshape(b, s, -1), i_d.reshape(b, 1, -1)], 1)
+        keep_inc = torch.cat([keep(i_p, s), keep(i_d, 1)], 1)
+        same = ((idx_inc == i_f.reshape(b, s + 1, -1)).all(-1)
+                & (keep_inc == keep(i_f, s + 1)).all(-1))  # (b, s + 1)
+        rows &= same[:, -1]
+        earlier += (~same[:, :-1]).sum(-1)
+    return rows, earlier
+
+def teacher_forced(TM, SV, cfg, model, toks, emb, s: int, nd: int, dev):
+    """Logits of prefill(S) and ``nd`` teacher-forced decode steps."""
+    import torch
+
+    b = toks.shape[0]
+    caches = TM.init_cache(cfg, b, s + nd + 2, device=dev)
+    toks = toks.to(dev)
+    prompt = ({"tokens": toks[:, :s]} if cfg.frontend == "token"
+              else {"embeddings": emb.to(dev)})
+    logits, caches = TM.make_prefill_step(cfg)(model, caches, prompt)
+    out = [logits.cpu()]
+    step = TM.make_serve_step(cfg)
+    for i in range(nd):
+        logits, caches = step(model, caches,
+                              SV.step_input(cfg, model, toks[:, s + i:s + i + 1]),
+                              s + i)
+        out.append(logits.cpu())
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
     return out
 
 
@@ -1143,6 +1481,15 @@ def main() -> None:
           f"bytes; roofline {json.dumps(rec['roofline'])}; fraction "
           f"{rec['roofline_fraction']}", flush=True)
     del full
+
+    # --- 7. serve ---
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    serve_phase(args, check)
+    check(sum(K.launch_counts().values()) == 0,
+          "the language-model path launched a hand kernel")
+    print(f"[serve] phase 7 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

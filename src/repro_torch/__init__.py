@@ -9,5 +9,8 @@ imports ``jax`` or ``repro``; ``convert.py`` carries data and config
 across for the parity tests.
 
 Entry point: :func:`repro_torch.assembly.pipeline.assemble`, which runs on
-the card unless ``PipelineConfig(device="cpu")``.
+the card unless ``PipelineConfig(device="cpu")``.  Beside it,
+``repro_torch.models`` and ``python -m repro_torch.launch.serve`` serve
+the ten language-model archs of ``repro.configs`` on one device (torch
+ops: JAX's LM path reaches no Pallas kernel).
 """

@@ -1,32 +1,36 @@
-"""Architecture registry of the port: the paper's own pipeline
-(``"dibella"``).  ``get_config(name)`` returns its :class:`DibellaConfig`,
-``reduced_config(name)`` the smoke-test reduction.
-
-The JAX registry also holds ten language-model configs and their shapes
-(``repro.configs.shapes``); they need the models, which the port does not
-have yet, so asking for one raises ``NotImplementedError``.
+"""Architecture registry of the port: the ten language-model configs and
+the paper's own pipeline (``"dibella"``), the same eleven names as
+``repro.configs``.  ``get_config(name)`` returns a ``ModelConfig`` (LM
+archs) or the ``DibellaConfig``; ``reduced_config(name)`` returns the
+smoke-test reduction of the same family.  Each module is the port's copy
+of its JAX twin, field for field.
 """
 
 from __future__ import annotations
 
 import importlib
 
-_MODULES = {"dibella": "dibella"}
+from .shapes import SHAPES, ShapeSpec, batch_specs, cache_specs, runs_cell  # noqa: F401
 
-#: the JAX registry's language-model archs, not ported yet
-LM_ARCH_NAMES = (
-    "musicgen-large", "mamba2-1.3b", "qwen2-moe-a2.7b",
-    "granite-moe-1b-a400m", "qwen3-4b", "gemma3-4b", "yi-9b",
-    "phi3-mini-3.8b", "hymba-1.5b", "internvl2-26b",
-)
+_MODULES = {
+    "musicgen-large": "musicgen_large",
+    "mamba2-1.3b": "mamba2_1p3b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2p7b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "qwen3-4b": "qwen3_4b",
+    "gemma3-4b": "gemma3_4b",
+    "yi-9b": "yi_9b",
+    "phi3-mini-3.8b": "phi3_mini_3p8b",
+    "hymba-1.5b": "hymba_1p5b",
+    "internvl2-26b": "internvl2_26b",
+    "dibella": "dibella",
+}
+
+ARCH_NAMES = [k for k in _MODULES if k != "dibella"]
 ALL_NAMES = list(_MODULES)
 
 
 def _module(name: str):
-    if name in LM_ARCH_NAMES:
-        raise NotImplementedError(
-            f"arch {name!r}: the language-model configs, models and shapes "
-            f"are not ported yet (ROADMAP.md queue 1, item 14)")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {ALL_NAMES}")
     return importlib.import_module(f".{_MODULES[name]}", __package__)

@@ -1,9 +1,12 @@
-"""Carrying data and config across from the JAX package.
+"""Carrying data, config and language-model parameters across from the
+JAX package.
 
-The system has no weights: what crosses from ``repro`` to the port is data
-(ELL matrices, read tensors) and the pipeline config.  These helpers take
-plain numpy arrays and dicts, so this module imports nothing of JAX — the
-caller applies ``np.asarray`` (and ``dataclasses.asdict``) on its side.
+What crosses from ``repro`` to the port is data (ELL matrices, read
+tensors), the pipeline config, and for the language models their config
+and parameter tree.  These helpers take plain numpy arrays and dicts, so
+this module imports nothing of JAX — the caller applies ``np.asarray``
+(``jax.tree.map(np.asarray, params)``) and ``dataclasses.asdict`` on its
+side.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 from .assembly.pipeline import PipelineConfig
 from .core.semiring import MP
 from .core.spmat import EllMatrix
+from .models.model import LanguageModel, ModelConfig
 
 
 def ell_from_numpy(cols, vals, n_cols: int, device="cpu") -> EllMatrix:
@@ -60,3 +64,54 @@ def config_from_dict(d: Mapping[str, Any], **overrides) -> PipelineConfig:
         kw["backend"] = "cuda"
     kw.update(overrides)
     return PipelineConfig(**kw)
+
+
+def lm_config_from_dict(d: Mapping[str, Any]) -> ModelConfig:
+    """The port's ``ModelConfig`` from ``dataclasses.asdict`` of the JAX
+    one (every field has its twin)."""
+    return ModelConfig(**d)
+
+
+def _jax_leaf(tree, key: str):
+    """The JAX leaf of the port's parameter ``key``: ``slots.{s}.{i}.<path>``
+    is ``tree["slots"][s][<path>][i]`` (JAX stacks a slot's layers on a
+    leading ``n_periods`` axis); any other key is ``tree[<path>]``."""
+    parts = key.split(".")
+    if parts[0] == "slots":
+        node, layer, parts = tree["slots"][int(parts[1])], int(parts[2]), parts[3:]
+    else:
+        node, layer = tree, None
+    for name in parts:
+        node = node[name]
+    return node if layer is None else node[layer]
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
+                         device="cpu") -> LanguageModel:
+    """The port's model holding JAX's parameter pytree ``tree`` (numpy
+    arrays): each ``slots[s]`` leaf is unstacked along ``n_periods`` into
+    layer ``i``'s parameter, and each leaf is cast to the dtype the port
+    stores it in.  The layout stays JAX's ``(d_in, d_out)``: no transpose.
+    Every leaf of ``tree`` must land on one parameter of the model."""
+    model = LanguageModel(cfg, device=device)
+    n_used = 0
+    with torch.no_grad():
+        for key, p in model.named_parameters():
+            leaf = np.asarray(_jax_leaf(tree, key))
+            if tuple(leaf.shape) != tuple(p.shape):
+                raise ValueError(f"{key}: JAX leaf {leaf.shape}, port {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(leaf, np.float32)).to(p.dtype))
+            n_used += leaf.size
+    n_tree = _tree_size(tree)
+    if n_used != n_tree:
+        raise ValueError(f"{n_tree - n_used} elements of the JAX tree have no "
+                         "parameter in the port")
+    return model.eval()
+
+
+def _tree_size(tree) -> int:
+    if isinstance(tree, Mapping):
+        return sum(_tree_size(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_size(v) for v in tree)
+    return int(np.asarray(tree).size)

@@ -23,8 +23,10 @@ loops and hand-called ops ahead of time, so the port runs the cell:
 
 The record is written as JSON to ``--out`` (default
 ``build/dryrun/dibella__<mesh>[__reduced].json`` under the working
-directory) and summarised on stdout.  Language-model archs are not ported
-yet and raise ``NotImplementedError``.
+directory) and summarised on stdout.  The language-model archs' configs
+and serving path are ported (``launch/serve.py``), but their dry run (JAX's
+LM branch of ``lower_cell``) is not: ``--arch`` of an LM raises
+``NotImplementedError`` (ROADMAP.md queue 1, item 14b).
 """
 
 from __future__ import annotations
@@ -147,6 +149,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     args = ap.parse_args(argv)
 
     cfg = (reduced_config if args.reduced else get_config)(args.arch)
+    if cfg.family != "assembly":
+        raise NotImplementedError(
+            f"arch {args.arch!r}: the language-model dry run is not ported "
+            "yet (ROADMAP.md queue 1, item 14b); python -m "
+            "repro_torch.launch.serve serves it")
     if args.dibella_u:
         cfg = dataclasses.replace(cfg, kmer_capacity=args.dibella_u)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():

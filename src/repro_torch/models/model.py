@@ -1,0 +1,580 @@
+"""``ModelConfig``, the model's blocks and the serving step factories for
+the ten language-model archs (the port of ``repro.models.model``, its
+single-device serving path).
+
+* The blocks are ``nn.Module``s whose parameter names follow JAX's tree
+  paths one to one: JAX's ``params["slots"][s]["attn"]["wq"][i]`` (leaf
+  stacked over the ``n_periods`` periods) is the port's
+  ``slots.{s}.{i}.attn.wq``.  Weights keep JAX's ``(d_in, d_out)`` layout.
+* Each parameter is stored in the dtype JAX's forward uses it in: the
+  config's compute dtype for the matmul weights, ``embed``, ``unembed``,
+  the expert weights, ``conv_w``, ``conv_b`` and ``d_skip``; f32 for the
+  norm scales, ``router``, ``dt_bias`` and ``a_log``.  JAX keeps f32 and
+  casts at every use; a cast gives the same bits once or every time.
+* gemma3's 5:1 local:global pattern is a per-layer switch of window and
+  rope θ (``layer_attn``); hymba's global layers switch the window only.
+* Caches are JAX's structure (a list per period slot of tensors stacked
+  over periods) and are updated in place, as JAX's serve donates them.
+
+The flags that only shape JAX's lowering or training (``decode_unroll``,
+``bf16_grad_activations``, ``batch_over_model``, ``sharded_cache_update``,
+``moe_impl`` without a mesh, ``ce_chunk``) are accepted and leave the
+serving forward as it is; ``ssd_bf16`` is honoured.  A ``mesh`` raises:
+the mesh paths and training wait for ROADMAP queue 1, item 14b.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .attention import cache_update, decode_attention, flash_attention
+from .layers import apply_rope, dense, init_dense, rms_norm, rope_freqs
+from .moe import moe_ffn_gspmd
+from .ssm import SSMState, mamba2_forward, mamba2_params_shapes
+
+GLOBAL_WINDOW = 2 ** 30  # the window JAX gives a global layer
+_MESH_TODO = ("the model's mesh paths are not ported yet (ROADMAP.md "
+              "queue 1, item 14b); pass mesh=None")
+
+
+def _pad_to(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """An LM arch's config, field for field JAX's ``ModelConfig``."""
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: Optional[int] = None
+    qk_norm: bool = False
+    rope_theta: float = 1e4
+    sliding_window: Optional[int] = None  # window for local layers
+    local_global_period: int = 1  # period-slot grouping
+    local_global_every: int = 0  # gemma3: every 6th layer is global (5:1)
+    rope_theta_local: float = 1e4  # gemma3: local layers use 10k theta
+    mlp_type: str = "swiglu"  # swiglu | gelu | geglu | none
+    # moe
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    d_ff_shared: int = 0
+    # ssm
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    conv_width: int = 4
+    # hybrid (hymba): attn ∥ ssm in every block; these layers are global attn
+    hybrid_global_layers: tuple = ()
+    frontend: str = "token"  # token | embed (audio/vlm stub)
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"
+    moe_impl: str = "shardmap"  # shardmap | gspmd (one path without a mesh)
+    ce_chunk: int = 1024  # training only
+    ssd_chunk: int = 128
+    ssd_bf16: bool = False  # bf16 SSD intra-chunk buffers
+    bf16_grad_activations: bool = False  # training only
+    batch_over_model: bool = False  # mesh layout only
+    sharded_cache_update: bool = False  # mesh layout only
+    decode_unroll: bool = False  # JAX lowering only
+
+    @property
+    def head_dim(self) -> int:
+        """Per-head width."""
+        return self.d_head or self.d_model // self.n_heads
+
+    @property
+    def vocab_padded(self) -> int:
+        """Vocab padded to a multiple of 256."""
+        return _pad_to(self.vocab_size, 256)
+
+    @property
+    def n_experts_padded(self) -> int:
+        """Experts padded to a multiple of 16."""
+        return _pad_to(self.n_experts, 16) if self.n_experts else 0
+
+    @property
+    def period(self) -> int:
+        """Period slots (scan body width in JAX)."""
+        return self.local_global_period
+
+    @property
+    def n_periods(self) -> int:
+        """Layers per period slot."""
+        assert self.n_layers % self.period == 0
+        return self.n_layers // self.period
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        """The compute dtype as a ``torch.dtype``."""
+        return getattr(torch, self.dtype)
+
+    def slot_kind(self, slot: int) -> str:
+        """Layer kind for period slot (gemma3: slots 0-4 local, 5 global)."""
+        if self.family == "ssm":
+            return "ssm"
+        if self.family == "hybrid":
+            return "hybrid"
+        if self.period > 1:
+            return "attn_local" if slot < self.period - 1 else "attn"
+        if self.sliding_window is not None and self.period == 1:
+            return "attn_local"
+        return "attn"
+
+    def param_count(self) -> int:
+        """Analytic parameter count (true vocab)."""
+        d, f = self.d_model, self.d_ff
+        hq, hkv, dh = self.n_heads, self.n_kv_heads, self.head_dim
+        per = 0
+        if self.family in ("dense", "moe", "audio", "vlm", "hybrid"):
+            per += d * (hq * dh) + 2 * d * (hkv * dh) + (hq * dh) * d
+        if self.family == "ssm" or self.family == "hybrid":
+            dims = mamba2_params_shapes(
+                d, expand=self.ssm_expand, headdim=self.ssm_headdim,
+                state=self.ssm_state, conv_width=self.conv_width,
+            )
+            per += d * dims["in_features"] + dims["d_inner"] * d
+            per += dims["conv_width"] * dims["conv_dim"]
+        if self.family == "moe":
+            per += d * self.n_experts  # router
+            per += self.n_experts * 3 * d * self.d_ff_expert
+            if self.d_ff_shared:
+                per += 3 * d * self.d_ff_shared
+        elif self.mlp_type == "gelu" and f:
+            per += 2 * d * f
+        elif f:
+            per += 3 * d * f
+        return self.n_layers * per + 2 * self.vocab_size * d
+
+    def active_param_count(self) -> int:
+        """Activated params per token (= param_count for non-MoE)."""
+        if self.family != "moe":
+            return self.param_count()
+        d = self.d_model
+        per_moe_full = self.n_experts * 3 * d * self.d_ff_expert
+        per_moe_act = self.top_k * 3 * d * self.d_ff_expert
+        return self.param_count() - self.n_layers * (per_moe_full - per_moe_act)
+
+
+def layer_attn(cfg: ModelConfig, kind: str, layer_idx: int):
+    """``(window, rope θ)`` of attention in layer ``layer_idx`` of kind
+    ``kind``: gemma3's every ``local_global_every``-th layer is global
+    (window 2³⁰, ``rope_theta``), the others local (``sliding_window``,
+    ``rope_theta_local``); hymba's ``hybrid_global_layers`` get window 2³⁰
+    and keep ``rope_theta``."""
+    if kind == "hybrid":
+        window = cfg.sliding_window
+        if window is not None and layer_idx in cfg.hybrid_global_layers:
+            window = GLOBAL_WINDOW
+        return window, cfg.rope_theta
+    window = cfg.sliding_window if kind == "attn_local" else None
+    theta = cfg.rope_theta
+    if cfg.local_global_every and window is not None:
+        every = cfg.local_global_every
+        if layer_idx % every == every - 1:
+            window = GLOBAL_WINDOW
+        else:
+            theta = cfg.rope_theta_local
+    return window, theta
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class Attention(nn.Module):
+    """``wq``, ``wk``, ``wv``, ``wo`` (and ``q_norm``, ``k_norm``)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        dt = cfg.torch_dtype
+        self.wq = _param((d, hq * dh), dt, device)
+        self.wk = _param((d, hkv * dh), dt, device)
+        self.wv = _param((d, hkv * dh), dt, device)
+        self.wo = _param((hq * dh, d), dt, device)
+        if cfg.qk_norm:
+            self.q_norm = _param((dh,), torch.float32, device)
+            self.k_norm = _param((dh,), torch.float32, device)
+
+    def init(self, gen: torch.Generator):
+        """Fill from ``gen`` as JAX's ``_init_attn`` draws."""
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            w.copy_(init_dense(gen, *w.shape))
+        if hasattr(self, "q_norm"):
+            self.q_norm.zero_()
+            self.k_norm.zero_()
+
+    def forward(self, x, cfg: ModelConfig, *, window, positions, cache=None,
+                pos=None, theta=None):
+        """x (B, S, D). Returns the block output; a ``cache`` (this layer's
+        ``{"k", "v"}`` views) takes the new keys and values in place."""
+        b, s, _ = x.shape
+        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = dense(x, self.wq).reshape(b, s, hq, dh)
+        k = dense(x, self.wk).reshape(b, s, hkv, dh)
+        v = dense(x, self.wv).reshape(b, s, hkv, dh)
+        if cfg.qk_norm:
+            q = rms_norm(q, self.q_norm, cfg.norm_eps)
+            k = rms_norm(k, self.k_norm, cfg.norm_eps)
+        cos, sin = rope_freqs(positions, dh,
+                              cfg.rope_theta if theta is None else theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        g = hq // hkv
+        if cache is not None:
+            kc, vc = cache_update(cache["k"], cache["v"], k, v, pos)
+        if cache is not None and s == 1:
+            out = decode_attention(q, kc, vc, int(pos) + s, window=window)
+        else:
+            # GQA as jnp.repeat: query head h reads KV head h // g
+            kf = k.repeat_interleave(g, dim=2) if g > 1 else k
+            vf = v.repeat_interleave(g, dim=2) if g > 1 else v
+            out = flash_attention(q, kf, vf, causal=True, window=window,
+                                  q_offset=0 if cache is None else int(pos))
+        return dense(out.reshape(b, s, hq * dh), self.wo)
+
+
+class Mlp(nn.Module):
+    """``w_in``/``w_out`` (gelu) or ``w_gate``/``w_up``/``w_down``."""
+
+    def __init__(self, cfg: ModelConfig, d_ff: int, device=None):
+        super().__init__()
+        d, dt = cfg.d_model, cfg.torch_dtype
+        if cfg.mlp_type == "gelu":
+            self.w_in = _param((d, d_ff), dt, device)
+            self.w_out = _param((d_ff, d), dt, device)
+        else:
+            self.w_gate = _param((d, d_ff), dt, device)
+            self.w_up = _param((d, d_ff), dt, device)
+            self.w_down = _param((d_ff, d), dt, device)
+
+    def init(self, gen: torch.Generator):
+        """Fill from ``gen`` as JAX's ``_init_mlp`` draws."""
+        for w in self.parameters():
+            w.copy_(init_dense(gen, *w.shape))
+
+    def forward(self, x, cfg: ModelConfig):
+        """gelu: ``dense(gelu(x·w_in), w_out)``; swiglu / geglu: gated by
+        silu / gelu.  ``jax.nn.gelu`` is the tanh form."""
+        if cfg.mlp_type == "gelu":
+            return dense(F.gelu(dense(x, self.w_in), approximate="tanh"),
+                         self.w_out)
+        g = dense(x, self.w_gate)
+        g = (F.gelu(g, approximate="tanh") if cfg.mlp_type == "geglu"
+             else F.silu(g))
+        return dense(g * dense(x, self.w_up), self.w_down)
+
+
+class Moe(nn.Module):
+    """``router`` (f32), ``w_gate``/``w_up`` (E, D, F), ``w_down`` (E, F,
+    D), and a ``shared`` Mlp where the config has one."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        e, fe, d, dt = (cfg.n_experts_padded, cfg.d_ff_expert, cfg.d_model,
+                        cfg.torch_dtype)
+        self.router = _param((d, e), torch.float32, device)
+        self.w_gate = _param((e, d, fe), dt, device)
+        self.w_up = _param((e, d, fe), dt, device)
+        self.w_down = _param((e, fe, d), dt, device)
+        if cfg.d_ff_shared:
+            self.shared = Mlp(cfg, cfg.d_ff_shared, device)
+        self.n_real = cfg.n_experts
+
+    def init(self, gen: torch.Generator):
+        """Fill from ``gen`` as JAX's ``_init_moe`` draws (padded experts
+        zero)."""
+        self.router.copy_(init_dense(gen, *self.router.shape))
+        for w in (self.w_gate, self.w_up, self.w_down):
+            sh = w.shape
+            x = torch.randn(sh, generator=gen, device=gen.device) / sh[1] ** 0.5
+            x[self.n_real:] = 0.0
+            w.copy_(x)
+        if hasattr(self, "shared"):
+            self.shared.init(gen)
+
+    def forward(self, x, cfg: ModelConfig):
+        """x (B, S, D): routed experts plus the shared MLP."""
+        b, s, d = x.shape
+        y = moe_ffn_gspmd(x.reshape(b * s, d), self, n_experts_real=cfg.n_experts,
+                          top_k=cfg.top_k).reshape(b, s, d)
+        if hasattr(self, "shared"):
+            y = y + self.shared(x, cfg)
+        return y
+
+
+class Mamba2(nn.Module):
+    """``in_proj``, ``out_proj``, ``conv_w``, ``conv_b``, ``d_skip``
+    (compute dtype); ``dt_bias``, ``a_log``, ``norm`` (f32)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        dims = mamba2_params_shapes(
+            cfg.d_model, expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+            state=cfg.ssm_state, conv_width=cfg.conv_width,
+        )
+        dt, f32, h = cfg.torch_dtype, torch.float32, dims["n_heads"]
+        self.in_proj = _param((cfg.d_model, dims["in_features"]), dt, device)
+        self.out_proj = _param((dims["d_inner"], cfg.d_model), dt, device)
+        self.conv_w = _param((dims["conv_width"], dims["conv_dim"]), dt, device)
+        self.conv_b = _param((dims["conv_dim"],), dt, device)
+        self.dt_bias = _param((h,), f32, device)
+        self.a_log = _param((h,), f32, device)
+        self.d_skip = _param((h,), dt, device)
+        self.norm = _param((dims["d_inner"],), f32, device)
+
+    def init(self, gen: torch.Generator):
+        """Fill from ``gen`` as JAX's ``_init_ssm`` draws."""
+        self.in_proj.copy_(init_dense(gen, *self.in_proj.shape))
+        self.out_proj.copy_(init_dense(gen, *self.out_proj.shape))
+        self.conv_w.copy_(torch.randn(self.conv_w.shape, generator=gen,
+                                      device=gen.device) * 0.2)
+        self.conv_b.zero_()
+        self.dt_bias.fill_(-2.0)
+        self.a_log.zero_()
+        self.d_skip.fill_(1.0)
+        self.norm.zero_()
+
+    def forward(self, x, cfg: ModelConfig, state: Optional[SSMState] = None):
+        """x (B, S, D). Returns (y, SSMState)."""
+        return mamba2_forward(x, self, cfg, state=state, chunk=cfg.ssd_chunk)
+
+
+class SlotBlock(nn.Module):
+    """One layer of period slot ``slot``: ``ln1`` and its mixer (``attn``,
+    ``ssm``, or both with ``bnorm_a``/``bnorm_s``), then ``ln2`` and an
+    ``mlp`` or ``moe`` where the config has one."""
+
+    def __init__(self, cfg: ModelConfig, slot: int, device=None):
+        super().__init__()
+        self.kind = kind = cfg.slot_kind(slot)
+        d, f32 = cfg.d_model, torch.float32
+        self.ln1 = _param((d,), f32, device)
+        if kind in ("attn", "attn_local", "hybrid"):
+            self.attn = Attention(cfg, device)
+        if kind in ("ssm", "hybrid"):
+            self.ssm = Mamba2(cfg, device)
+        if kind == "hybrid":
+            self.bnorm_a = _param((d,), f32, device)
+            self.bnorm_s = _param((d,), f32, device)
+        if cfg.family == "moe":
+            self.ln2 = _param((d,), f32, device)
+            self.moe = Moe(cfg, device)
+        elif cfg.d_ff and cfg.mlp_type != "none" and cfg.family != "ssm":
+            self.ln2 = _param((d,), f32, device)
+            self.mlp = Mlp(cfg, cfg.d_ff, device)
+
+    def init(self, gen: torch.Generator):
+        """Fill from ``gen`` as JAX's ``_init_slot`` draws."""
+        for name in ("ln1", "ln2", "bnorm_a", "bnorm_s"):
+            if hasattr(self, name):
+                getattr(self, name).zero_()
+        for name in ("attn", "ssm", "moe", "mlp"):
+            if hasattr(self, name):
+                getattr(self, name).init(gen)
+
+    def forward(self, x, cfg: ModelConfig, *, positions, layer_idx: int,
+                cache=None, pos=None):
+        """x (B, S, D). Returns the new x; a ``cache`` (this layer's views of
+        the stacked caches) is updated in place."""
+        kind = self.kind
+        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        if kind in ("attn", "attn_local"):
+            window, theta = layer_attn(cfg, kind, layer_idx)
+            x = x + self.attn(h, cfg, window=window, positions=positions,
+                              cache=cache, pos=pos, theta=theta)
+        elif kind == "ssm":
+            x = x + self._ssm(h, cfg, cache)
+        else:  # hybrid: parallel attn + ssm heads
+            window, _ = layer_attn(cfg, kind, layer_idx)
+            a = self.attn(h, cfg, window=window, positions=positions,
+                          cache=None if cache is None else cache["attn"], pos=pos)
+            m = self._ssm(h, cfg, None if cache is None else cache["ssm"])
+            x = x + 0.5 * (rms_norm(a, self.bnorm_a, cfg.norm_eps)
+                           + rms_norm(m, self.bnorm_s, cfg.norm_eps))
+        if hasattr(self, "mlp") or hasattr(self, "moe"):
+            h2 = rms_norm(x, self.ln2, cfg.norm_eps)
+            ffn = self.mlp if hasattr(self, "mlp") else self.moe
+            x = x + ffn(h2, cfg)
+        return x
+
+    def _ssm(self, h, cfg: ModelConfig, cache):
+        """The Mamba-2 mixer; its new state goes into ``cache`` in place."""
+        state = None if cache is None else SSMState(cache["h"], cache["conv"])
+        y, st = self.ssm(h, cfg, state)
+        if cache is not None:
+            cache["h"].copy_(st.h)
+            cache["conv"].copy_(st.conv)
+        return y
+
+
+class LanguageModel(nn.Module):
+    """The whole model: ``embed`` (token frontend), ``unembed``,
+    ``final_norm`` and ``slots[s][i]``, layer ``i·period + s``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        dt = cfg.torch_dtype
+        self.final_norm = _param((cfg.d_model,), torch.float32, device)
+        if cfg.frontend == "token":
+            self.embed = _param((cfg.vocab_padded, cfg.d_model), dt, device)
+        self.unembed = _param((cfg.d_model, cfg.vocab_padded), dt, device)
+        self.slots = nn.ModuleList(
+            nn.ModuleList(SlotBlock(cfg, s, device) for _ in range(cfg.n_periods))
+            for s in range(cfg.period))
+
+    def init(self, gen: torch.Generator):
+        """Fill every parameter from ``gen``."""
+        self.final_norm.zero_()
+        if hasattr(self, "embed"):
+            self.embed.copy_(torch.randn(self.embed.shape, generator=gen,
+                                         device=gen.device) * 0.02)
+        self.unembed.copy_(init_dense(gen, *self.unembed.shape))
+        for i in range(self.cfg.n_periods):
+            for s in range(self.cfg.period):
+                self.slots[s][i].init(gen)
+
+    def forward(self, batch, cfg: ModelConfig, *, caches=None, pos=None):
+        """batch: ``{"tokens": (B, S)}`` or ``{"embeddings": (B, S, D)}``.
+        Returns (hidden (B, S, D) after ``final_norm``, caches)."""
+        dt = cfg.torch_dtype
+        if cfg.frontend == "token":
+            x = self.embed[batch["tokens"].long()].to(dt)
+        else:
+            x = batch["embeddings"].to(dt)
+        s = x.shape[1]
+        base = 0 if pos is None else int(pos)
+        positions = base + torch.arange(s, device=x.device)
+        for i in range(cfg.n_periods):
+            for slot in range(cfg.period):
+                sc = None if caches is None else _layer_cache(caches[slot], i)
+                x = self.slots[slot][i](
+                    x, cfg, positions=positions, layer_idx=i * cfg.period + slot,
+                    cache=sc, pos=pos)
+        return rms_norm(x, self.final_norm, cfg.norm_eps), caches
+
+
+def _layer_cache(c, i: int):
+    """Layer ``i``'s views of a slot's stacked cache tree."""
+    if isinstance(c, dict):
+        return {k: _layer_cache(v, i) for k, v in c.items()}
+    return c[i]
+
+
+# ---------------------------------------------------------------------------
+# Functional API (JAX's names)
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> LanguageModel:
+    """A model of ``cfg`` on ``gen``'s device, every parameter drawn from
+    ``gen`` (JAX's distributions; not JAX's numbers)."""
+    with torch.no_grad():
+        model = LanguageModel(cfg, device=gen.device)
+        model.init(gen)
+    return model.eval()
+
+
+def forward(params: LanguageModel, batch, cfg: ModelConfig, *, mesh=None,
+            caches=None, pos=None, seq_shards: int = 1):
+    """Full stack. Returns (hidden (B, S, D), caches updated in place)."""
+    if mesh is not None or seq_shards != 1:
+        raise NotImplementedError(_MESH_TODO)
+    with torch.no_grad():
+        return params(batch, cfg, caches=caches, pos=pos)
+
+
+def unembed_logits(x_last: torch.Tensor, unembed: torch.Tensor) -> torch.Tensor:
+    """(B, D) hidden → (B, V_padded) f32 logits: the f32 product of the
+    upcast operands (JAX's ``preferred_element_type=jnp.float32``)."""
+    return torch.matmul(x_last.float(), unembed.float())
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=None,
+               device=None) -> List[Any]:
+    """Per-period-slot stacked caches: ``{"k", "v"}`` (attention),
+    ``{"h" (f32), "conv"}`` (SSM), both under ``"attn"``/``"ssm"``
+    (hybrid).  ``device="meta"`` gives the shapes without memory."""
+    dt = dtype or cfg.torch_dtype
+    if isinstance(dt, str):
+        dt = getattr(torch, dt)
+    npd = cfg.n_periods
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def attn_cache():
+        return {
+            "k": zeros((npd, batch_size, max_len, hkv, dh), dt),
+            "v": zeros((npd, batch_size, max_len, hkv, dh), dt),
+        }
+
+    def ssm_cache():
+        dims = mamba2_params_shapes(
+            cfg.d_model, expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+            state=cfg.ssm_state, conv_width=cfg.conv_width,
+        )
+        return {
+            "h": zeros((npd, batch_size, dims["n_heads"], cfg.ssm_state,
+                        dims["d_inner"] // dims["n_heads"]), torch.float32),
+            "conv": zeros((npd, batch_size, cfg.conv_width - 1,
+                           dims["conv_dim"]), dt),
+        }
+
+    caches = []
+    for slot in range(cfg.period):
+        kind = cfg.slot_kind(slot)
+        if kind in ("attn", "attn_local"):
+            caches.append(attn_cache())
+        elif kind == "ssm":
+            caches.append(ssm_cache())
+        else:  # hybrid
+            caches.append({"attn": attn_cache(), "ssm": ssm_cache()})
+    return caches
+
+
+def make_serve_step(cfg: ModelConfig, *, mesh=None, seq_shards: int = 1):
+    """Returns ``serve_step(params, caches, batch, pos) -> (logits, caches)``:
+    one decode step at position ``pos``, f32 logits (B, V_padded)."""
+    if mesh is not None or seq_shards != 1:
+        raise NotImplementedError(_MESH_TODO)
+
+    def serve_step(params, caches, batch, pos):
+        x, caches = forward(params, batch, cfg, caches=caches, pos=pos)
+        return unembed_logits(x[:, -1], params.unembed), caches
+
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig, *, mesh=None):
+    """Returns ``prefill(params, caches, batch) -> (logits, caches)``: the
+    prompt into the caches at position 0, the last token's f32 logits."""
+    if mesh is not None:
+        raise NotImplementedError(_MESH_TODO)
+
+    def prefill(params, caches, batch):
+        x, caches = forward(params, batch, cfg, caches=caches, pos=0)
+        return unembed_logits(x[:, -1], params.unembed), caches
+
+    return prefill

@@ -1,0 +1,165 @@
+"""Mamba-2 SSD (state-space duality) layer on torch tensors (the port of
+``repro.models.ssm``).
+
+Prefill uses the chunked SSD form: inside a chunk of Q tokens the
+recurrence is a decay-masked quadratic form, and a (B, H, N, P) state is
+carried from chunk to chunk (JAX's ``lax.scan`` is a loop here).  Decode
+keeps the recurrent state and costs O(1) a token.  Products that JAX asks
+for in f32 (``preferred_element_type``) are f32 products of the upcast
+operands.
+
+Shapes: d_inner = expand·d_model, H = d_inner/headdim heads, state N,
+B/C shared across heads, per-step decay a_t = exp(Δ_t·A).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from .layers import dense, rms_norm, softplus
+
+
+class SSMState(NamedTuple):
+    """A Mamba-2 layer's decode state."""
+
+    h: torch.Tensor  # (B, H, N, P) inter-chunk state
+    conv: torch.Tensor  # (B, W-1, conv_dim) conv tail
+
+
+def _causal_conv(x, w, b, conv_state=None):
+    """Depthwise causal conv1d. x (B, S, C), w (W, C), b (C,).
+    Returns (silu(y), new_tail)."""
+    bsz, s, c = x.shape
+    wlen = w.shape[0]
+    if conv_state is None:
+        pad = x.new_zeros((bsz, wlen - 1, c))
+    else:
+        pad = conv_state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    y = torch.zeros_like(x)
+    for t in range(wlen):
+        y = y + xp[:, t: t + s, :] * w[t].to(x.dtype)
+    y = y + b.to(x.dtype)
+    return F.silu(y), (xp[:, -(wlen - 1):, :] if wlen > 1 else pad)
+
+
+def ssd_chunked(xh, dt, a_log, bmat, cmat, *, chunk: int = 128,
+                compute_bf16: bool = False):
+    """SSD forward.
+
+    xh (B, S, H, P); dt (B, S, H) post-softplus; a_log (H,) (A = −exp(a_log));
+    bmat/cmat (B, S, N).  Returns y (B, S, H, P) in ``xh``'s dtype and the
+    final state (B, H, N, P) in f32.  ``compute_bf16`` keeps the Δ-scaled
+    inputs and chunk buffers in bf16 (the state stays f32)."""
+    b, s, h, p = xh.shape
+    n = bmat.shape[-1]
+    q = min(chunk, s)
+    nc = -(-s // q)
+    pad = nc * q - s
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        bmat = F.pad(bmat, (0, 0, 0, pad))
+        cmat = F.pad(cmat, (0, 0, 0, pad))
+    dev = xh.device
+    a = -torch.exp(a_log.float())  # (H,) negative
+    loga = dt.float() * a  # (B, S', H) log decay per step
+    cdt = torch.bfloat16 if compute_bf16 else torch.float32
+    xc = (xh * dt[..., None]).to(cdt)  # Δ-scaled input
+
+    xs = xc.reshape(b, nc, q, h, p)
+    ls = loga.reshape(b, nc, q, h)
+    bs = bmat.reshape(b, nc, q, n).to(cdt)
+    cs = cmat.reshape(b, nc, q, n).to(cdt)
+    tri = (torch.arange(q, device=dev)[:, None]
+           >= torch.arange(q, device=dev)[None, :])[None, :, :, None]
+
+    hstate = torch.zeros((b, h, n, p), dtype=torch.float32, device=dev)
+    ys = []
+    for ci in range(nc):
+        xq, lq, bq, cq = xs[:, ci], ls[:, ci], bs[:, ci], cs[:, ci]
+        cum = torch.cumsum(lq, dim=1)  # L_t inclusive
+        # intra-chunk: scores[t, s] = (C_t·B_s) exp(L_t − L_s) for s ≤ t
+        cb = torch.matmul(cq.float(), bq.float().transpose(1, 2))  # (B,Q,Q)
+        gap = cum[:, :, None, :] - cum[:, None, :, :]  # (B,t,s,H)
+        w = (torch.where(tri, torch.exp(gap), 0.0) * cb[..., None]).to(cdt)
+        y_intra = torch.einsum("btsh,bshp->bthp", w.float(), xq.float())
+        # contribution of the carried state: Y_t += C_t · h · exp(L_t)
+        y_inter = torch.einsum("btn,bhnp->bthp", cq.float(),
+                               hstate) * torch.exp(cum)[..., None]
+        # new state: h' = exp(L_end) h + Σ_s exp(L_end − L_s) B_s ⊗ x_s
+        lend = cum[:, -1, :]  # (B,H)
+        decay_s = torch.exp(lend[:, None, :] - cum).to(cdt)  # (B,Q,H)
+        s_chunk = torch.einsum("bsn,bsh,bshp->bhnp", bq.float(),
+                               decay_s.float(), xq.float())
+        hstate = torch.exp(lend)[:, :, None, None] * hstate + s_chunk
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(b, nc * q, h, p)[:, :s]
+    return y.to(xh.dtype), hstate
+
+
+def ssd_decode_step(hstate, x1, dt1, a_log, b1, c1):
+    """One-token recurrent update. x1 (B, H, P), dt1 (B, H), b1/c1 (B, N).
+    Returns the new state (f32) and y (B, H, P) in ``x1``'s dtype."""
+    a = -torch.exp(a_log.float())
+    decay = torch.exp(dt1.float() * a)  # (B, H)
+    upd = torch.einsum("bn,bhp->bhnp", b1.float(),
+                       (x1 * dt1[..., None]).float())
+    h2 = decay[:, :, None, None] * hstate + upd
+    y = torch.einsum("bn,bhnp->bhp", c1.float(), h2)
+    return h2, y.to(x1.dtype)
+
+
+def mamba2_params_shapes(d_model: int, *, expand: int, headdim: int, state: int,
+                         conv_width: int):
+    """Derived sizes of a Mamba-2 mixer."""
+    d_inner = expand * d_model
+    h = d_inner // headdim
+    conv_dim = d_inner + 2 * state
+    return {
+        "d_inner": d_inner,
+        "n_heads": h,
+        "conv_dim": conv_dim,
+        "in_features": 2 * d_inner + 2 * state + h,
+        "conv_width": conv_width,
+    }
+
+
+def mamba2_forward(x, p, cfg, *, state: Optional[SSMState] = None,
+                   chunk: int = 128):
+    """Full Mamba-2 mixer. x (B, S, D); ``p`` has the parameters as
+    attributes (``in_proj``, ``out_proj``, ``conv_w``, ``conv_b``,
+    ``dt_bias``, ``a_log``, ``d_skip``, ``norm``).  Returns (y (B, S, D),
+    SSMState)."""
+    bsz, s, _ = x.shape
+    dims = mamba2_params_shapes(
+        x.shape[-1], expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+        state=cfg.ssm_state, conv_width=cfg.conv_width,
+    )
+    di, h, n = dims["d_inner"], dims["n_heads"], cfg.ssm_state
+    proj = dense(x, p.in_proj)  # (B,S, 2di+2n+h)
+    z, xbc, dt = torch.split(proj, [di, di + 2 * n, h], dim=-1)
+    xconv, new_tail = _causal_conv(
+        xbc, p.conv_w, p.conv_b, None if state is None else state.conv,
+    )
+    xh = xconv[..., :di].reshape(bsz, s, h, di // h)
+    bmat = xconv[..., di: di + n]
+    cmat = xconv[..., di + n:]
+    dt = softplus(dt.float() + p.dt_bias)
+    if s == 1 and state is not None:
+        h2, y1 = ssd_decode_step(
+            state.h, xh[:, 0], dt[:, 0], p.a_log, bmat[:, 0], cmat[:, 0]
+        )
+        y = y1[:, None]
+        hfin = h2
+    else:
+        y, hfin = ssd_chunked(xh, dt, p.a_log, bmat, cmat, chunk=chunk,
+                              compute_bf16=getattr(cfg, "ssd_bf16", False))
+    y = y + xh * p.d_skip.to(y.dtype)[None, None, :, None]
+    y = y.reshape(bsz, s, di)
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p.norm)
+    out = dense(y, p.out_proj)
+    return out, SSMState(h=hfin, conv=new_tail)

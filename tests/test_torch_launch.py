@@ -61,12 +61,16 @@ def test_dibella_config_equals_jax(which):
 
 
 def test_lm_archs_are_not_ported():
-    for get in (get_config, reduced_config):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            get("qwen3-4b")
+    """The LM configs are ported (serving, ROADMAP item 14a); their dry run
+    is not (item 14b) and still raises."""
+    for get, jget in ((get_config, j_get_config),
+                      (reduced_config, j_reduced_config)):
+        port, ref = get("qwen3-4b"), jget("qwen3-4b")
+        assert type(port).__module__ == "repro_torch.models.model"
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     with pytest.raises(KeyError):
         get_config("nope")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 14b"):
         dryrun.main(["--arch", "yi-9b", "--device", "cpu"])
 
 
