@@ -2,8 +2,8 @@
 JAX package.
 
 What crosses from ``repro`` to the port is data (ELL matrices, read
-tensors), the pipeline config, and for the language models their config
-and parameter tree.  These helpers take plain numpy arrays and dicts, so
+tensors), the pipeline config, and for the language models their config,
+parameter tree and train state.  These helpers take plain numpy arrays and dicts, so
 this module imports nothing of JAX — the caller applies ``np.asarray``
 (``jax.tree.map(np.asarray, params)``) and ``dataclasses.asdict`` on its
 side.
@@ -20,7 +20,8 @@ import torch
 from .assembly.pipeline import PipelineConfig
 from .core.semiring import MP
 from .core.spmat import EllMatrix
-from .models.model import LanguageModel, ModelConfig
+from .models.model import LanguageModel, ModelConfig, build_model
+from .optim import OptState
 
 
 def ell_from_numpy(cols, vals, n_cols: int, device="cpu") -> EllMatrix:
@@ -87,26 +88,53 @@ def _jax_leaf(tree, key: str):
 
 
 def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
-                         device="cpu") -> LanguageModel:
+                         device="cpu", *, train: bool = False) -> LanguageModel:
     """The port's model holding JAX's parameter pytree ``tree`` (numpy
     arrays): each ``slots[s]`` leaf is unstacked along ``n_periods`` into
     layer ``i``'s parameter, and each leaf is cast to the dtype the port
-    stores it in.  The layout stays JAX's ``(d_in, d_out)``: no transpose.
-    Every leaf of ``tree`` must land on one parameter of the model."""
-    model = LanguageModel(cfg, device=device)
+    stores it in (``train``: f32 for every leaf, with gradients, as
+    ``build_model(train=True)``).  The layout stays JAX's ``(d_in,
+    d_out)``: no transpose.  Every leaf of ``tree`` must land on one
+    parameter of the model."""
+    model = build_model(cfg, device, train=train)
+    _fill_from_tree(model.named_parameters(), tree)
+    return model.eval()
+
+
+def _fill_from_tree(named, tree) -> Dict[str, torch.Tensor]:
+    """Copy JAX's leaf of each ``(key, tensor)`` of ``named`` into the
+    tensor; raises unless every element of ``tree`` is used."""
     n_used = 0
+    out = {}
     with torch.no_grad():
-        for key, p in model.named_parameters():
+        for key, p in named:
             leaf = np.asarray(_jax_leaf(tree, key))
             if tuple(leaf.shape) != tuple(p.shape):
                 raise ValueError(f"{key}: JAX leaf {leaf.shape}, port {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(leaf, np.float32)).to(p.dtype))
             n_used += leaf.size
+            out[key] = p
     n_tree = _tree_size(tree)
     if n_used != n_tree:
         raise ValueError(f"{n_tree - n_used} elements of the JAX tree have no "
                          "parameter in the port")
-    return model.eval()
+    return out
+
+
+def lm_train_state_from_numpy(params_tree: Mapping[str, Any], opt_state_tree,
+                              step: int, cfg: ModelConfig, device="cpu"):
+    """The port's train state ``(model, OptState(mu, nu), step)`` from JAX's
+    ``(params, OptState(mu, nu), step)`` as numpy trees: the f32 trainable
+    model, and the moments by the port's parameter names."""
+    model = lm_params_from_numpy(params_tree, cfg, device, train=True)
+
+    def moments(tree):
+        return _fill_from_tree(
+            ((n, torch.zeros(p.shape, dtype=torch.float32, device=p.device))
+             for n, p in model.named_parameters()), tree)
+
+    mu, nu = opt_state_tree
+    return model, OptState(mu=moments(mu), nu=moments(nu)), int(step)
 
 
 def _tree_size(tree) -> int:

@@ -2,4 +2,5 @@
 the H100's published peaks (``roofline``), the paper's dibella cell
 (``dibella_cell``) and its dry run (``python -m
 repro_torch.launch.dryrun --arch dibella``), and language-model serving
-(``python -m repro_torch.launch.serve``)."""
+(``python -m repro_torch.launch.serve``) and training (``python -m
+repro_torch.launch.train``)."""

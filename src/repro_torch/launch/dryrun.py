@@ -23,10 +23,11 @@ loops and hand-called ops ahead of time, so the port runs the cell:
 
 The record is written as JSON to ``--out`` (default
 ``build/dryrun/dibella__<mesh>[__reduced].json`` under the working
-directory) and summarised on stdout.  The language-model archs' configs
-and serving path are ported (``launch/serve.py``), but their dry run (JAX's
-LM branch of ``lower_cell``) is not: ``--arch`` of an LM raises
-``NotImplementedError`` (ROADMAP.md queue 1, item 14b).
+directory) and summarised on stdout.  The language-model archs' configs,
+serving and training paths are ported (``launch/serve.py``,
+``launch/train.py``), but their dry run (JAX's LM branch of
+``lower_cell``) is not: ``--arch`` of an LM raises ``NotImplementedError``
+(ROADMAP.md queue 1, item 14b.4).
 """
 
 from __future__ import annotations
@@ -152,8 +153,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     if cfg.family != "assembly":
         raise NotImplementedError(
             f"arch {args.arch!r}: the language-model dry run is not ported "
-            "yet (ROADMAP.md queue 1, item 14b); python -m "
-            "repro_torch.launch.serve serves it")
+            "yet (ROADMAP.md queue 1, item 14b.4); python -m "
+            "repro_torch.launch.serve serves it and python -m "
+            "repro_torch.launch.train trains it")
     if args.dibella_u:
         cfg = dataclasses.replace(cfg, kmer_capacity=args.dibella_u)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():

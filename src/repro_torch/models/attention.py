@@ -12,8 +12,10 @@ over a KV cache.
 * ``cache_update`` writes the new keys and values into the cache in place,
   with ``dynamic_update_slice``'s clamp of the start.
 
-The mesh paths (``decode_attention_sharded``, ``cache_update_sharded``)
-wait for the model's grid port (ROADMAP queue 1, item 14b).
+With gradients on, each KV block step is recomputed in the backward (JAX's
+``jax.checkpoint`` of ``kv_step``).  The mesh paths
+(``decode_attention_sharded``, ``cache_update_sharded``) wait for the
+model's grid port (ROADMAP queue 1, item 14b.3).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -70,11 +73,12 @@ def flash_attention(
     scale = _scale(d, dev)
     skip_ok = (causal and q_offset == 0 and sq <= skv
                and (window is None or window > 0))
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
     outs = []
     for qi in range(n_qb):
         qblk = qr[qi].float()
         q_lo = q_offset + qi * qb
-        qpos = q_lo + torch.arange(qb, device=dev)
         m = torch.full((b, hkv, g, qb), NEG_INF, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((b, hkv, g, qb), dtype=torch.float32, device=dev)
@@ -84,29 +88,46 @@ def flash_attention(
             if skip_ok and (k_lo > q_lo + qb - 1 or (
                     window is not None and k_lo + kb - 1 <= q_lo - window)):
                 continue
-            kpos = k_lo + torch.arange(kb, device=dev)
-            s_ = torch.matmul(qblk, kr[ki].float().transpose(-1, -2))
-            s_ = s_.reshape(b, hkv, g, qb, kb) * scale
-            mask = torch.ones((qb, kb), dtype=torch.bool, device=dev)
-            if causal:
-                mask &= kpos[None, :] <= qpos[:, None]
-            if window is not None:
-                mask &= kpos[None, :] > qpos[:, None] - window
-            mask &= (kpos < skv)[None, :]
-            s_ = torch.where(mask, s_, NEG_INF)
-            m2 = torch.maximum(m, s_.amax(dim=-1))
-            p = torch.exp(s_ - m2[..., None])
-            corr = torch.exp(m - m2)
-            l = l * corr + p.sum(dim=-1)
-            pv = torch.matmul(p.to(v.dtype).float().reshape(b, hkv, g * qb, kb),
-                              vr[ki].float())
-            acc = acc * corr[..., None] + pv.reshape(b, hkv, g, qb, d)
-            m = m2
+            args = (qblk, kr[ki], vr[ki], m, l, acc, q_lo, k_lo, skv, scale,
+                    causal, window)
+            if remat:  # JAX's jax.checkpoint of kv_step: no S² scores kept
+                m, l, acc = checkpoint(_kv_step, *args, use_reentrant=False)
+            else:
+                m, l, acc = _kv_step(*args)
         out = acc / torch.clamp_min(l, 1e-30)[..., None]
         outs.append(out.to(q.dtype))
     # (n_qb, B, Hkv, G, qb, D) -> (B, n_qb·qb, Hq, D)
     out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(b, n_qb * qb, hq, d)
     return out[:, :sq]
+
+
+def _kv_step(qblk, kblk, vblk, m, l, acc, q_lo: int, k_lo: int, skv: int,
+             scale, causal: bool, window):
+    """One KV block of the online softmax: qblk (B, Hkv, G·qb, D) f32, kblk
+    / vblk (B, Hkv, kb, D); returns the new running (max, sum, acc)."""
+    b, hkv, _, d = qblk.shape
+    g, qb = m.shape[2], m.shape[3]
+    kb = kblk.shape[2]
+    dev = qblk.device
+    qpos = q_lo + torch.arange(qb, device=dev)
+    kpos = k_lo + torch.arange(kb, device=dev)
+    s_ = torch.matmul(qblk, kblk.float().transpose(-1, -2))
+    s_ = s_.reshape(b, hkv, g, qb, kb) * scale
+    mask = torch.ones((qb, kb), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    mask &= (kpos < skv)[None, :]
+    s_ = torch.where(mask, s_, NEG_INF)
+    m2 = torch.maximum(m, s_.amax(dim=-1))
+    p = torch.exp(s_ - m2[..., None])
+    corr = torch.exp(m - m2)
+    l = l * corr + p.sum(dim=-1)
+    pv = torch.matmul(p.to(vblk.dtype).float().reshape(b, hkv, g * qb, kb),
+                      vblk.float())
+    acc = acc * corr[..., None] + pv.reshape(b, hkv, g, qb, d)
+    return m2, l, acc
 
 
 def decode_attention(

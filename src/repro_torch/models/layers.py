@@ -1,10 +1,11 @@
 """Shared transformer layers on torch tensors (the port of
 ``repro.models.layers``).
 
-Parameters are stored in the dtype the forward uses them in (the config's
-compute dtype, or f32 for norm scales); compute keeps JAX's f32
-normalization and rotation statistics.  Only the forward: the rope
-``custom_vjp`` of the JAX module is training (ROADMAP queue 1, item 14b).
+A serving model stores each parameter in the dtype the forward uses it in
+(the config's compute dtype, or f32 for norm scales), a training model
+every parameter in f32 as JAX does; compute keeps JAX's f32 normalization
+and rotation statistics.  ``apply_rope`` carries JAX's ``custom_vjp``: its
+backward is the inverse rotation, computed in f32 and rounded once.
 """
 
 from __future__ import annotations
@@ -35,16 +36,41 @@ def rope_freqs(positions: torch.Tensor, d_head: int,
     return torch.cos(ang), torch.sin(ang)
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x (..., S, H, D); cos/sin (..., S, D//2). Rotate-half convention, in
-    f32 (the angles' dtype), cast back to ``x``'s dtype."""
+def _rope_rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                 sign: float) -> torch.Tensor:
+    """Rotate-half by ``sign``·angle in f32 (the angles' dtype), cast back
+    to ``x``'s dtype."""
     d = x.shape[-1]
     x1, x2 = x[..., : d // 2], x[..., d // 2:]
     c = cos[..., None, :]  # broadcast over heads
-    s = sin[..., None, :]
+    s = sign * sin[..., None, :]
     out1 = x1 * c - x2 * s
     out2 = x2 * c + x1 * s
     return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+class _Rope(torch.autograd.Function):
+    """JAX's ``apply_rope`` ``custom_vjp``: the transpose of a rotation is
+    the inverse rotation, applied to the cotangent in f32 and rounded once
+    to its dtype (plain autograd would round each of the two products of
+    ``x1``/``x2`` to bf16 and add them in bf16)."""
+
+    @staticmethod
+    def forward(ctx, x, cos, sin):
+        ctx.save_for_backward(cos, sin)
+        return _rope_rotate(x, cos, sin, 1.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        cos, sin = ctx.saved_tensors
+        return _rope_rotate(g, cos, sin, -1.0), None, None
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, D); cos/sin (..., S, D//2). Rotate-half convention, in
+    f32 (the angles' dtype), cast back to ``x``'s dtype.  The angles get no
+    gradient (JAX's rule returns zeros for them)."""
+    return _Rope.apply(x, cos, sin)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -1,37 +1,48 @@
-"""``ModelConfig``, the model's blocks and the serving step factories for
-the ten language-model archs (the port of ``repro.models.model``, its
-single-device serving path).
+"""``ModelConfig``, the model's blocks, and the serving and training step
+factories for the ten language-model archs (the port of
+``repro.models.model``, its single-device paths).
 
 * The blocks are ``nn.Module``s whose parameter names follow JAX's tree
   paths one to one: JAX's ``params["slots"][s]["attn"]["wq"][i]`` (leaf
   stacked over the ``n_periods`` periods) is the port's
   ``slots.{s}.{i}.attn.wq``.  Weights keep JAX's ``(d_in, d_out)`` layout.
-* Each parameter is stored in the dtype JAX's forward uses it in: the
-  config's compute dtype for the matmul weights, ``embed``, ``unembed``,
-  the expert weights, ``conv_w``, ``conv_b`` and ``d_skip``; f32 for the
-  norm scales, ``router``, ``dt_bias`` and ``a_log``.  JAX keeps f32 and
-  casts at every use; a cast gives the same bits once or every time.
+* A serving model (``init_params(cfg, gen)``) stores each parameter in the
+  dtype JAX's forward uses it in: the config's compute dtype for the
+  matmul weights, ``embed``, ``unembed``, the expert weights, ``conv_w``,
+  ``conv_b`` and ``d_skip``; f32 for the norm scales, ``router``,
+  ``dt_bias`` and ``a_log``.  JAX keeps f32 and casts at every use; a cast
+  gives the same bits once or every time.  A training model
+  (``init_params(cfg, gen, train=True)``) stores every parameter in f32
+  with gradients, as JAX's ``init_params`` does: the optimizer updates the
+  f32 master and the forward casts at use.
 * gemma3's 5:1 local:global pattern is a per-layer switch of window and
   rope θ (``layer_attn``); hymba's global layers switch the window only.
 * Caches are JAX's structure (a list per period slot of tensors stacked
   over periods) and are updated in place, as JAX's serve donates them.
+* Training: ``forward`` without caches, with gradients, recomputes each
+  period group in the backward (JAX's ``jax.checkpoint`` of the scan
+  body), so only the residual stream is kept between groups; the loss is
+  JAX's sequence-chunked cross entropy, each chunk recomputed too.
 
-The flags that only shape JAX's lowering or training (``decode_unroll``,
-``bf16_grad_activations``, ``batch_over_model``, ``sharded_cache_update``,
-``moe_impl`` without a mesh, ``ce_chunk``) are accepted and leave the
-serving forward as it is; ``ssd_bf16`` is honoured.  A ``mesh`` raises:
-the mesh paths and training wait for ROADMAP queue 1, item 14b.
+The flags that only shape JAX's lowering (``decode_unroll``,
+``batch_over_model``, ``sharded_cache_update``, ``moe_impl`` without a
+mesh) are accepted and change nothing; ``ssd_bf16``, ``ce_chunk`` and
+``bf16_grad_activations`` are honoured.  A ``mesh`` raises: the mesh paths
+wait for ROADMAP queue 1, item 14b.3.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..optim import global_norm
 from .attention import cache_update, decode_attention, flash_attention
 from .layers import apply_rope, dense, init_dense, rms_norm, rope_freqs
 from .moe import moe_ffn_gspmd
@@ -39,7 +50,7 @@ from .ssm import SSMState, mamba2_forward, mamba2_params_shapes
 
 GLOBAL_WINDOW = 2 ** 30  # the window JAX gives a global layer
 _MESH_TODO = ("the model's mesh paths are not ported yet (ROADMAP.md "
-              "queue 1, item 14b); pass mesh=None")
+              "queue 1, item 14b.3); pass mesh=None")
 
 
 def _pad_to(x: int, mult: int) -> int:
@@ -82,10 +93,10 @@ class ModelConfig:
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
     moe_impl: str = "shardmap"  # shardmap | gspmd (one path without a mesh)
-    ce_chunk: int = 1024  # training only
+    ce_chunk: int = 1024  # training: tokens a cross-entropy chunk
     ssd_chunk: int = 128
     ssd_bf16: bool = False  # bf16 SSD intra-chunk buffers
-    bf16_grad_activations: bool = False  # training only
+    bf16_grad_activations: bool = False  # training: bf16 residual cotangents
     batch_over_model: bool = False  # mesh layout only
     sharded_cache_update: bool = False  # mesh layout only
     decode_unroll: bool = False  # JAX lowering only
@@ -415,6 +426,8 @@ class SlotBlock(nn.Module):
             h2 = rms_norm(x, self.ln2, cfg.norm_eps)
             ffn = self.mlp if hasattr(self, "mlp") else self.moe
             x = x + ffn(h2, cfg)
+        if cfg.bf16_grad_activations:
+            x = bf16_grad_barrier(x)
         return x
 
     def _ssm(self, h, cfg: ModelConfig, cache):
@@ -456,7 +469,9 @@ class LanguageModel(nn.Module):
 
     def forward(self, batch, cfg: ModelConfig, *, caches=None, pos=None):
         """batch: ``{"tokens": (B, S)}`` or ``{"embeddings": (B, S, D)}``.
-        Returns (hidden (B, S, D) after ``final_norm``, caches)."""
+        Returns (hidden (B, S, D) after ``final_norm``, caches).  Without
+        caches, with gradients on, each period group is recomputed in the
+        backward (JAX's ``jax.checkpoint`` of the layer scan body)."""
         dt = cfg.torch_dtype
         if cfg.frontend == "token":
             x = self.embed[batch["tokens"].long()].to(dt)
@@ -465,13 +480,39 @@ class LanguageModel(nn.Module):
         s = x.shape[1]
         base = 0 if pos is None else int(pos)
         positions = base + torch.arange(s, device=x.device)
+        remat = (caches is None and torch.is_grad_enabled()
+                 and any(p.requires_grad for p in self.parameters()))
         for i in range(cfg.n_periods):
+            if remat:
+                x = self._remat_group(x, cfg, i, positions)
+                continue
             for slot in range(cfg.period):
                 sc = None if caches is None else _layer_cache(caches[slot], i)
                 x = self.slots[slot][i](
                     x, cfg, positions=positions, layer_idx=i * cfg.period + slot,
                     cache=sc, pos=pos)
         return rms_norm(x, self.final_norm, cfg.norm_eps), caches
+
+    def _remat_group(self, x, cfg: ModelConfig, i: int, positions):
+        """Period group ``i`` (layer ``i`` of every slot) under
+        ``torch.utils.checkpoint``: only ``x`` and the group's parameters
+        are kept, and the backward runs the group again.  The parameters
+        are passed in, so the recompute uses the tensors the forward used
+        (a mixed-precision step's bf16 casts)."""
+        blocks = [self.slots[s][i] for s in range(cfg.period)]
+        named = [list(b.named_parameters()) for b in blocks]
+
+        def run(x, *flat):
+            it = iter(flat)
+            for slot, (blk, nm) in enumerate(zip(blocks, named)):
+                x = torch.func.functional_call(
+                    blk, {n: next(it) for n, _ in nm}, (x, cfg),
+                    {"positions": positions,
+                     "layer_idx": i * cfg.period + slot})
+            return x
+
+        return checkpoint(run, x, *(p for nm in named for _, p in nm),
+                          use_reentrant=False)
 
 
 def _layer_cache(c, i: int):
@@ -486,21 +527,37 @@ def _layer_cache(c, i: int):
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> LanguageModel:
+def build_model(cfg: ModelConfig, device=None, *, train: bool = False
+                ) -> LanguageModel:
+    """An uninitialised model of ``cfg``: serving storage (see the module
+    docstring), or with ``train`` every parameter in f32 with gradients,
+    as JAX's ``init_params`` stores them."""
+    if not train:
+        return LanguageModel(cfg, device=device)
+    model = LanguageModel(cfg, device="meta").float()
+    return model.to_empty(device=device or "cpu").requires_grad_(True)
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, *,
+                train: bool = False) -> LanguageModel:
     """A model of ``cfg`` on ``gen``'s device, every parameter drawn from
-    ``gen`` (JAX's distributions; not JAX's numbers)."""
+    ``gen`` (JAX's distributions; not JAX's numbers); ``train`` gives the
+    f32 trainable model of ``build_model``."""
     with torch.no_grad():
-        model = LanguageModel(cfg, device=gen.device)
+        model = build_model(cfg, gen.device, train=train)
         model.init(gen)
     return model.eval()
 
 
 def forward(params: LanguageModel, batch, cfg: ModelConfig, *, mesh=None,
             caches=None, pos=None, seq_shards: int = 1):
-    """Full stack. Returns (hidden (B, S, D), caches updated in place)."""
+    """Full stack. Returns (hidden (B, S, D), caches updated in place).
+    With caches it runs without gradients; without, it records them where
+    a parameter wants one."""
     if mesh is not None or seq_shards != 1:
         raise NotImplementedError(_MESH_TODO)
-    with torch.no_grad():
+    grad = torch.no_grad() if caches is not None else contextlib.nullcontext()
+    with grad:
         return params(batch, cfg, caches=caches, pos=pos)
 
 
@@ -578,3 +635,143 @@ def make_prefill_step(cfg: ModelConfig, *, mesh=None):
         return unembed_logits(x[:, -1], params.unembed), caches
 
     return prefill
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+class _Bf16GradBarrier(torch.autograd.Function):
+    """JAX's ``_bf16_grad_barrier``: identity forward; the cotangent is
+    rounded to bf16 and cast back to ``x``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(ctx.dtype)
+
+
+def bf16_grad_barrier(x: torch.Tensor) -> torch.Tensor:
+    """Identity whose backward carries a bf16 cotangent (placed after each
+    block and before the loss when ``cfg.bf16_grad_activations``)."""
+    return _Bf16GradBarrier.apply(x)
+
+
+def _ce_chunk(xi, li, w, vocab_size: int):
+    """One chunk's (Σ loss, Σ weight): f32 logits of ``xi`` (B, cs, D) and
+    the f32 unembed ``w``, vocab ids ≥ ``vocab_size`` at −1e30, logsumexp
+    minus the gold logit, weighted by ``li >= 0``."""
+    logits = torch.matmul(xi.float(), w)
+    vids = torch.arange(logits.shape[-1], device=logits.device)
+    logits = logits.masked_fill(vids >= vocab_size, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = li >= 0
+    gold = torch.gather(logits, -1, torch.where(valid, li, 0).long()[..., None])
+    wt = valid.float()
+    return torch.sum((lse - gold[..., 0]) * wt), torch.sum(wt)
+
+
+def chunked_ce_loss(x, labels, w_unembed, cfg: ModelConfig, *, mesh=None):
+    """Sequence-chunked cross entropy (JAX's single-device branch).  x (B,
+    S, D); labels (B, S) int (−1 = ignore).  Chunks of ``min(ce_chunk, S)``
+    tokens, the tail padded with label −1; logits are the f32 product of
+    the upcast operands (``unembed`` cast to ``x``'s dtype first, as JAX's
+    ``w.astype(xi.dtype)``), and each chunk is recomputed in the backward,
+    so the (B·S, vocab) logits never exist.  Returns Σ loss / max(Σ
+    weight, 1)."""
+    if mesh is not None:
+        raise NotImplementedError(_MESH_TODO)
+    b, s, _ = x.shape
+    cs = min(cfg.ce_chunk, s)
+    n_chunks = -(-s // cs)
+    pad = n_chunks * cs - s
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    w = w_unembed.to(x.dtype).float()
+    remat = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        xi, li = x[:, c * cs:(c + 1) * cs], labels[:, c * cs:(c + 1) * cs]
+        if remat:
+            loss, wt = checkpoint(_ce_chunk, xi, li, w, cfg.vocab_size,
+                                  use_reentrant=False)
+        else:
+            loss, wt = _ce_chunk(xi, li, w, cfg.vocab_size)
+        tot = tot + loss
+        cnt = cnt + wt
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def loss_fn(params: LanguageModel, batch, cfg: ModelConfig, *, mesh=None):
+    """Mean next-token cross entropy of ``batch`` (``labels`` beside the
+    inputs) under ``params``."""
+    if mesh is not None:
+        raise NotImplementedError(_MESH_TODO)
+    x, _ = forward(params, batch, cfg)
+    if cfg.bf16_grad_activations:
+        x = bf16_grad_barrier(x)
+    return chunked_ce_loss(x, batch["labels"], params.unembed, cfg)
+
+
+class _Loss(nn.Module):
+    """``loss_fn`` as a module over ``model``, for ``functional_call``."""
+
+    def __init__(self, model: LanguageModel, cfg: ModelConfig):
+        super().__init__()
+        self.model, self.cfg = model, cfg
+
+    def forward(self, batch):
+        return loss_fn(self.model, batch, self.cfg)
+
+
+def loss_and_grads(model: LanguageModel, batch, cfg: ModelConfig, *,
+                   mixed_precision: bool = False):
+    """``(loss, grads)``: the loss as a 0-dim f32 tensor and the gradient of
+    every parameter by name (zeros where the loss does not reach it, as
+    JAX's ``value_and_grad`` gives).  ``mixed_precision`` computes with
+    bf16 casts of the f32 parameters, as JAX's ``make_train_step`` does;
+    the gradients are those casts' transposes, in f32."""
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.grad = None
+    if mixed_precision:
+        cast = {"model." + n: (p.to(torch.bfloat16) if p.dtype == torch.float32
+                               else p) for n, p in params.items()}
+        loss = torch.func.functional_call(_Loss(model, cfg), cast, (batch,))
+    else:
+        loss = loss_fn(model, batch, cfg)
+    loss.backward()
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for n, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    return loss.detach(), grads
+
+
+def make_train_step(cfg: ModelConfig, optimizer, *, mesh=None,
+                    mixed_precision: bool = False):
+    """Returns ``train_step(state, batch) -> (state, metrics)``; ``state``
+    is ``(model, opt_state, step)``, updated in place (the step is a new
+    int), and ``metrics`` holds ``loss`` and ``grad_norm`` (the f32 norm of
+    the unclipped gradients) as 0-dim tensors.  ``optimizer`` is a
+    ``repro_torch.optim`` object with ``init``/``update_``."""
+    if mesh is not None:
+        raise NotImplementedError(_MESH_TODO)
+
+    def train_step(state, batch):
+        model, opt_state, step = state
+        loss, grads = loss_and_grads(model, batch, cfg,
+                                     mixed_precision=mixed_precision)
+        gnorm = global_norm(grads.values())
+        optimizer.update_(grads, opt_state, dict(model.named_parameters()),
+                          step)
+        return (model, opt_state, step + 1), {"loss": loss, "grad_norm": gnorm}
+
+    return train_step

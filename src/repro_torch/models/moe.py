@@ -11,7 +11,7 @@ each token's K contributions in k order in the compute dtype, a fixed
 order (no atomics).
 
 ``moe_ffn_shardmap`` (expert parallelism on a mesh) waits for the model's
-grid port (ROADMAP queue 1, item 14b); without a mesh JAX always takes
+grid port (ROADMAP queue 1, item 14b.3); without a mesh JAX always takes
 ``moe_ffn_gspmd``.
 """
 

@@ -393,3 +393,22 @@ def job_assemble(inputs):
                          for c in res.polished_contigs],
         }
     return out
+
+
+def job_compressed_reduce(inputs):
+    """``CompressedAllReduce.reduce`` of this rank's gradients
+    (``inputs["grads"][rank]``) over ``"data"`` of a ``(world, 1)`` grid,
+    for each mode, with the grid's all-reduce byte count."""
+    from repro_torch.core.grid import ProcessGrid
+    from repro_torch.runtime import CompressedAllReduce
+
+    rank = dist.get_rank()
+    grid = ProcessGrid(dist.get_world_size(), 1)
+    grads = {k: torch.from_numpy(v) for k, v in inputs["grads"][rank].items()}
+    out = {}
+    for mode in ("none", "bf16", "int8"):
+        grid.reset_collective_bytes()
+        red = CompressedAllReduce(mode=mode).reduce(grads, grid, "data")
+        out[mode] = {k: v.float().numpy() for k, v in red.items()}
+        out[mode + "_bytes"] = grid.reset_collective_bytes()["all_reduce"]
+    return out
