@@ -139,6 +139,29 @@ exit, no result line) on any check that does not hold:
              the same bounds; then ``launch.train.main`` on the card (bf16):
              8 steps straight against 5 steps, a checkpoint and ``--resume``
              to 8, final loss within rtol 1e-4.
+9. mesh    — the language models' mesh paths (``mesh=`` a 1×1
+             ``ProcessGrid`` over a 1-rank NCCL group; torch ops and the
+             grid's collectives, no hand kernel: JAX's mesh paths reach no
+             Pallas kernel either, and the launch counts, set to 0 before,
+             must stay 0).  Phase 8's state is freed first.  9a: qwen3-4b at
+             full width and depth, sharded by the rules: prefill logits of
+             7a's prompt against the plain path's (rtol = atol = 0.15, argmax
+             equal), then ``serve(mesh=)`` at batch 8, prompt 512, 64 tokens
+             (caches sequence-sharded, ``seq_shards`` = the model axis): the
+             same greedy tokens as 7a; then ``make_state(mesh=, fsdp=True)``
+             and 2 steps of ``make_train_step(mesh=)`` on 8a's batches: the
+             first step's loss and grad norm within 1e-5 relative of 8a's,
+             with times and the allocator's peak beside 7a's and 8a's.  9b:
+             the other nine archs at full width with 2 layers (gemma3 6)
+             through the mesh entry points (``moe_ffn_shardmap`` at tp = 1,
+             the SSM path, the vocab-parallel CE) against their plain
+             paths: prefill and one decode step (batch 4, S 256) within
+             0.15 with argmax equal, ``loss_and_grads`` on 1 × 256 within
+             1e-5 (loss and grad norm).  9c: the LM dry run of qwen3-4b
+             ``decode_32k`` (``launch/dryrun.py``) at the production
+             grid's rows per rank (128 / 16 = 8, cache 32,768): its record
+             (production argument bytes and roofline, the measured decode
+             step) in one line, also written to ``build/chip_smoke/``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -426,6 +449,8 @@ def serve_phase(args, check, device: str = "cuda") -> None:
                                    else res.peak_bytes - base),
         "first_tokens": toks[0, :16].tolist()}
     print(f"[serve] 7a {json.dumps(rec)}", flush=True)
+    ref = {"tokens": toks, "prefill_ms": res.prefill_ms,
+           "decode_step_ms": step_ms}
     del params, prompt, warm, res
     if cuda:
         torch.cuda.empty_cache()
@@ -535,6 +560,7 @@ def serve_phase(args, check, device: str = "cuda") -> None:
                           for x, y in zip(a, c)),
                       f"7c {arch} bf16: card vs CPU outside 0.15 ({diff})")
         print(f"[serve] 7c {arch}: {json.dumps(line)}", flush=True)
+    return ref
 
 
 def routed_alike_rows(r_full, r_inc, cfg, b: int, s: int):
@@ -820,6 +846,8 @@ def train_phase(args, check, device: str = "cuda") -> None:
            "grad_norms": gnorms, "peak_bytes": peak,
            "reckoned_peak_bytes": plan["reckoned_peak"]}
     print(f"[train] 8a {json.dumps(rec)}", flush=True)
+    ref = {"seq": seq, "loss": losses[0], "grad_norm": gnorms[0],
+           "step_ms_median": step_ms, "peak_bytes": peak}
     del state, step_fn, m, batch
     if cuda:
         torch.cuda.empty_cache()
@@ -860,6 +888,7 @@ def train_phase(args, check, device: str = "cuda") -> None:
               f"{json.dumps(err)}; main bf16 final loss straight {full[-1]:.6f}, "
               f"resumed {resumed[-1]:.6f}", flush=True)
         check(ok, f"8c {arch}: resume final loss {resumed[-1]} vs {full[-1]}")
+    return ref
 
 
 def _check_card_cpu(what, runs, err, check):
@@ -873,9 +902,209 @@ def _check_card_cpu(what, runs, err, check):
           f"in L2, moments {MOMENT_TOL} of a leaf's max)")
 
 
+MESH_CHECK = dict(batch=4, seq=256, train_seq=256)  # 9b
+MESH_TRAIN_STEPS = 2  # 9a
+DRYRUN_ARGV = ["--arch", "qwen3-4b", "--shape", "decode_32k", "--batch", "8"]
+
+
+def mesh_phase(args, check, serve_ref, train_ref, device: str = "cuda"):
+    """Phase 9: the language models' mesh paths (``mesh=`` a 1×1
+    ``ProcessGrid`` over a 1-rank process group): qwen3-4b served and
+    trained at full size (9a), the other nine archs at full width (9b), and
+    the LM dry run of qwen3-4b ``decode_32k`` (9c).  Only ``"cuda"`` is a
+    measurement; another device rehearses the control flow (with
+    ``configs.get_config`` patched and a gloo group)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs as TC
+    from repro_torch.core.grid import ProcessGrid
+    from repro_torch.data import SyntheticLMData, as_tensors
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import train as TT
+    from repro_torch.models import model as TM
+    from repro_torch.optim import AdamW, cosine_schedule, global_norm
+    from repro_torch.runtime.sharding import shard_model
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    own = not (dist.is_available() and dist.is_initialized())
+    if own:
+        dist.init_process_group("nccl" if cuda else "gloo",
+                                store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        grid = ProcessGrid(1, 1)
+
+        # --- 9a. qwen3-4b served and trained through the mesh entry points
+        sargs = SV.parse_args(SERVE_ARGV + ["--seed", str(args.seed),
+                                            "--device", device])
+        cfg, params, prompt = SV.setup(sargs)
+        max_len = sargs.prompt_len + sargs.gen
+        caches = TM.init_cache(cfg, sargs.batch, max_len, device=dev)
+        plain, _ = TM.make_prefill_step(cfg)(params, caches, prompt)
+        del caches
+        params = shard_model(params, grid)
+        caches = TM.init_cache(cfg, sargs.batch, max_len, device=dev,
+                               mesh=grid, seq_sharded=True)
+        logits, _ = TM.make_prefill_step(cfg, mesh=grid)(params, caches, prompt)
+        del caches
+        plain, logits = plain.cpu(), logits.cpu()
+        err = float((logits - plain).abs().max())
+        check(bool(torch.isfinite(logits).all()) and bool(
+            (logits - plain).abs().le(0.15 + 0.15 * plain.abs()).all())
+            and torch.equal(logits.argmax(-1), plain.argmax(-1)),
+            f"9a: mesh prefill logits off the plain path's (max |diff| {err})")
+        SV.serve(cfg, params, prompt, gen=4, mesh=grid)  # warm-up
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        res = SV.serve(cfg, params, prompt, gen=sargs.gen, mesh=grid)
+        same = torch.equal(res.tokens, serve_ref["tokens"])
+        step_ms = res.decode_ms / res.decode_steps
+        rec = {"arch": cfg.name, "grid": list(grid.sizes),
+               "batch": sargs.batch, "prompt_len": sargs.prompt_len,
+               "gen": sargs.gen, "prefill_logits_max_abs_diff": err,
+               "tokens_equal_7a": same, "prefill_ms": res.prefill_ms,
+               "prefill_ms_7a": serve_ref["prefill_ms"],
+               "decode_step_ms": step_ms,
+               "decode_step_ms_7a": serve_ref["decode_step_ms"],
+               "tokens_per_s": res.tokens_per_s, "peak_bytes": res.peak_bytes,
+               "collective_bytes": grid.reset_collective_bytes()}
+        print(f"[mesh] 9a serve {json.dumps(rec)}", flush=True)
+        check(same, "9a: the mesh path's greedy tokens differ from 7a's")
+        del params, prompt, res, plain, logits
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        opt = AdamW(learning_rate=cosine_schedule(3e-3, 1, TRAIN_STEPS + 1))
+        state = TT.make_state(cfg, opt, torch.Generator(device=dev).manual_seed(
+            args.seed), mesh=grid, fsdp=True)
+        step_fn = TM.make_train_step(cfg, opt, mesh=grid)
+        seq = train_ref["seq"]
+        data = SyntheticLMData(vocab_size=cfg.vocab_size, batch_size=1,
+                               seq_len=seq, seed=0)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        losses, gnorms, times = [], [], []
+        for step in range(MESH_TRAIN_STEPS):
+            batch = as_tensors(TT.rank_batch(data, step, grid), dev)
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            if cuda:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        rel_l = abs(losses[0] - train_ref["loss"]) / abs(train_ref["loss"])
+        rel_g = abs(gnorms[0] - train_ref["grad_norm"]) / abs(
+            train_ref["grad_norm"])
+        rec = {"arch": cfg.name, "grid": list(grid.sizes), "batch": 1,
+               "seq": seq, "losses": losses, "grad_norms": gnorms,
+               "loss_8a": train_ref["loss"],
+               "grad_norm_8a": train_ref["grad_norm"],
+               "loss_rel_diff": rel_l, "grad_norm_rel_diff": rel_g,
+               "step_ms": times, "step_ms_8a_median": train_ref["step_ms_median"],
+               "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+               "peak_bytes_8a": train_ref["peak_bytes"],
+               "collective_bytes": grid.reset_collective_bytes()}
+        print(f"[mesh] 9a train {json.dumps(rec)}", flush=True)
+        check(rel_l <= 1e-5 and rel_g <= 1e-5,
+              f"9a: first step (loss, grad_norm) ({losses[0]}, {gnorms[0]}) vs "
+              f"8a's ({train_ref['loss']}, {train_ref['grad_norm']})")
+        del state, step_fn, m, batch
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # --- 9b. the other nine archs at full width, mesh against plain ---
+        b, s, ts = MESH_CHECK["batch"], MESH_CHECK["seq"], MESH_CHECK["train_seq"]
+        for arch in TC.ARCH_NAMES:
+            if arch == "qwen3-4b":
+                continue
+            t0 = time.perf_counter()
+            full = TC.get_config(arch)
+            cfg = dataclasses.replace(
+                full, n_layers=6 if arch == "gemma3-4b" else 2)
+            params = TM.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(args.seed))
+            rng = np.random.default_rng(args.seed + 3)
+            toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (b, s + 1))
+                                    .astype(np.int32)).to(dev)
+            if cfg.frontend == "token":
+                pre, last = {"tokens": toks[:, :s]}, {"tokens": toks[:, s:]}
+            else:
+                emb = torch.from_numpy(rng.normal(0, 1, (b, s, cfg.d_model))
+                                       ).to(torch.bfloat16).to(dev)
+                pre = {"embeddings": emb}
+                last = SV.step_input(cfg, params, toks[:, s:])
+            outs = []
+            for mesh in (None, grid):
+                if mesh is not None:
+                    params = shard_model(params, grid)
+                caches = TM.init_cache(cfg, b, s + 4, device=dev, mesh=mesh,
+                                       seq_sharded=mesh is not None)
+                lp, _ = TM.make_prefill_step(cfg, mesh=mesh)(params, caches, pre)
+                ld, _ = TM.make_serve_step(cfg, mesh=mesh)(params, caches, last, s)
+                outs.append((lp.cpu(), ld.cpu()))
+                del caches
+            serve_err = max(float((x - y).abs().max())
+                            for x, y in zip(*outs))
+            serve_ok = all(bool(torch.isfinite(y).all()) and bool(
+                (y - x).abs().le(0.15 + 0.15 * x.abs()).all()) and torch.equal(
+                x.argmax(-1), y.argmax(-1)) for x, y in zip(*outs))
+            del params
+            model = TM.init_params(cfg, torch.Generator(device=dev).manual_seed(
+                args.seed), train=True)
+            data = SyntheticLMData(vocab_size=cfg.vocab_size, batch_size=1,
+                                   seq_len=ts, seed=1, frontend=cfg.frontend,
+                                   d_model=cfg.d_model)
+            batch = as_tensors(data.batch_at(0), dev)
+            l0, g0 = TM.loss_and_grads(model, batch, cfg)
+            n0 = float(global_norm(g0))
+            del g0
+            model = shard_model(model, grid, fsdp=True)
+            l1, g1 = TM.loss_and_grads(model, batch, cfg, mesh=grid)
+            n1 = float(global_norm(g1, grid=grid, specs=model.sharding.specs))
+            del g1, model
+            rel_l = abs(float(l1) - float(l0)) / abs(float(l0))
+            rel_g = abs(n1 - n0) / abs(n0)
+            print(f"[mesh] 9b {arch}: {cfg.n_layers} layers, d_model "
+                  f"{cfg.d_model}: serve (batch {b}, S {s}, one decode step) "
+                  f"max |mesh - plain| {serve_err:.3e}; train (1 x {ts}) loss "
+                  f"{float(l1):.6f} vs {float(l0):.6f} (rel {rel_l:.2e}), grad "
+                  f"norm {n1:.6f} vs {n0:.6f} (rel {rel_g:.2e}); "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            check(serve_ok, f"9b {arch}: mesh serve logits off the plain "
+                  f"path's (max |diff| {serve_err})")
+            check(rel_l <= 1e-5 and rel_g <= 1e-5,
+                  f"9b {arch}: mesh train loss/grad norm off the plain path's")
+            if cuda:
+                torch.cuda.empty_cache()
+
+        # --- 9c. the LM dry run of qwen3-4b decode_32k ---
+        if cuda:
+            t0 = time.perf_counter()
+            os.makedirs(os.path.join("build", "chip_smoke"), exist_ok=True)
+            with contextlib.redirect_stdout(io.StringIO()):
+                rec = DR.main(DRYRUN_ARGV + ["--out", os.path.join(
+                    "build", "chip_smoke", "dryrun_qwen3-4b_decode_32k.json")])
+            meas = rec["measured"]
+            check(meas["finite"] and meas["ms"] > 0,
+                  "9c: the dry run's decode step is not finite")
+            print(f"[mesh] 9c {json.dumps(rec)} in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
 def main() -> None:
     args = parse_args()
-    records = kernel_and_serve_phases(args)
+    records, serve_ref = kernel_and_serve_phases(args)
     import torch
 
     from repro_torch import kernels as K
@@ -889,11 +1118,22 @@ def main() -> None:
     check(live < 1e9, f"{live} bytes still allocated after phases 1-7")
     t0 = time.perf_counter()
     K.reset_launch_counts()
-    train_phase(args, check)
+    train_ref = train_phase(args, check)
     check(sum(K.launch_counts().values()) == 0,
           "the training path launched a hand kernel")
     print(f"[train] phase 8 in {time.perf_counter() - t0:.1f} s (no hand "
           "kernel: JAX's training path reaches no pallas_call)", flush=True)
+
+    # --- 9. the mesh paths on a 1x1 grid ---
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    mesh_phase(args, check, serve_ref, train_ref)
+    check(sum(K.launch_counts().values()) == 0,
+          "the mesh paths launched a hand kernel")
+    print(f"[mesh] phase 9 in {time.perf_counter() - t0:.1f} s (no hand "
+          "kernel: JAX's LM mesh paths reach no pallas_call)", flush=True)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -1826,13 +2066,13 @@ def kernel_and_serve_phases(args):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     K.reset_launch_counts()
-    serve_phase(args, check)
+    serve_ref = serve_phase(args, check)
     check(sum(K.launch_counts().values()) == 0,
           "the language-model path launched a hand kernel")
     print(f"[serve] phase 7 in {time.perf_counter() - t0:.1f} s", flush=True)
     for op in originals:  # drop the capturing wrappers of phase 3
         B.register_op(op, "cuda", originals[op])
-    return records
+    return records, serve_ref
 
 
 if __name__ == "__main__":

@@ -6,4 +6,5 @@ from .checkpoint import (  # noqa: F401
     load_pytree,
     restore_latest,
     save_pytree,
+    tree_shardings,
 )

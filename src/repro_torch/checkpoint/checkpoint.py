@@ -18,6 +18,14 @@ named parameters.  A leaf's key is its path joined with ``/`` (``0/embed``,
 ``1/mu/embed``, ``2`` for the state ``(model, OptState, step)``).  bf16
 tensors are stored as f32 (numpy has no bf16) and restored to the dtype of
 the tree they are loaded into.
+
+A state sharded on a grid (a model from ``runtime.sharding.shard_model``
+or ``launch.train.make_state(mesh=)``, with its moments) is written as its
+*logical* arrays, as JAX's checkpoints are: every rank gathers each leaf
+(a collective) and rank 0 writes.  Loading into a sharded ``like`` keeps
+each rank's block of the logical arrays by the like's own specs (or by
+``shardings=``, a ``runtime.sharding.ModelSharding``), so a checkpoint of
+one grid restores onto another: JAX's elastic restore.
 """
 
 from __future__ import annotations
@@ -58,16 +66,52 @@ def _flatten(tree, prefix: str, out: Dict[str, Any]) -> None:
         out[prefix[:-1]] = tree
 
 
-def to_host(tree: Any) -> Dict[str, np.ndarray]:
-    """Every leaf of ``tree`` copied to host memory, by key."""
+def tree_shardings(tree: Any):
+    """The placement of a tree holding a sharded model (the model itself,
+    or a state whose first element it is): its ``ModelSharding``, else
+    None.  A leaf takes the spec of its last key component, the parameter
+    name (``0/embed`` and ``1/mu/embed`` both take ``embed``'s); other
+    leaves are whole."""
+    model = tree[0] if isinstance(tree, (list, tuple)) and tree else tree
+    return getattr(model, "sharding", None)
+
+
+def _spec(key: str, shardings) -> tuple:
+    if shardings is None:
+        return ()
+    return shardings.specs.get(key.rsplit("/", 1)[-1], ())
+
+
+def to_host(tree: Any, shardings=None
+            ) -> Dict[str, np.ndarray]:
+    """Every leaf of ``tree`` copied to host memory, by key; sharded
+    leaves are gathered to their logical arrays first (a collective)."""
+    from ..runtime.sharding import gather_tensor
+
     flat: Dict[str, Any] = {}
     _flatten(tree, "", flat)
-    return {k: _host(v) for k, v in flat.items()}
+    out = {}
+    for k, v in flat.items():
+        spec = _spec(k, shardings)
+        if spec and isinstance(v, torch.Tensor):
+            v = gather_tensor(v.detach(), spec, shardings.grid)
+        out[k] = _host(v)
+    return out
 
 
-def save_pytree(path: str, tree: Any, *, meta: Optional[dict] = None) -> None:
-    """Atomic save of a tree to ``path`` (a directory)."""
-    _write(path, to_host(tree), meta)
+def _writer(shardings) -> bool:
+    """Whether this rank writes (rank 0 of a sharded tree's grid)."""
+    return shardings is None or shardings.grid.rank == 0
+
+
+def save_pytree(path: str, tree: Any, *, meta: Optional[dict] = None,
+                shardings=None) -> None:
+    """Atomic save of a tree to ``path`` (a directory): a sharded tree's
+    logical arrays, written by rank 0 (every rank calls it)."""
+    shardings = shardings or tree_shardings(tree)
+    host = to_host(tree, shardings)
+    if _writer(shardings):
+        _write(path, host, meta)
 
 
 def _write(path: str, arrs: Dict[str, np.ndarray], meta: Optional[dict]) -> None:
@@ -85,34 +129,47 @@ def _write(path: str, arrs: Dict[str, np.ndarray], meta: Optional[dict]) -> None
     os.rename(tmp, path)
 
 
-def _fill(like, data, prefix: str):
+def _fill(like, data, prefix: str, shardings=None):
     """``like`` with every leaf read from ``data``: tensors (module
     parameters included) are overwritten in place, in their own dtype and
-    device; containers are rebuilt; numbers take the stored value."""
+    device, with the rank's block of a sharded leaf; containers are
+    rebuilt; numbers take the stored value."""
     if isinstance(like, nn.Module):
-        _fill(dict(like.named_parameters()), data, prefix)
+        _fill(dict(like.named_parameters()), data, prefix, shardings)
         return like
     if isinstance(like, dict):
-        return {k: _fill(v, data, f"{prefix}{k}/") for k, v in like.items()}
+        return {k: _fill(v, data, f"{prefix}{k}/", shardings)
+                for k, v in like.items()}
     if isinstance(like, (list, tuple)):
-        vals = [_fill(v, data, f"{prefix}{i}/") for i, v in enumerate(like)]
+        vals = [_fill(v, data, f"{prefix}{i}/", shardings)
+                for i, v in enumerate(like)]
         if hasattr(like, "_fields"):  # NamedTuple
             return type(like)(*vals)
         return type(like)(vals)
     arr = data[prefix[:-1]]
     if isinstance(like, torch.Tensor):
+        src = torch.from_numpy(arr)
+        spec = _spec(prefix[:-1], shardings)
+        if spec:
+            from ..runtime.sharding import shard_tensor
+
+            src = shard_tensor(src, spec, shardings.grid)
         with torch.no_grad():
-            like.copy_(torch.from_numpy(arr).to(like.dtype))
+            like.copy_(src.to(like.dtype))
         return like
     if isinstance(like, np.ndarray):
         return arr.astype(like.dtype)
     return type(like)(arr.item())
 
 
-def load_pytree(path: str, like: Any) -> Any:
-    """Load ``path`` into the structure of ``like`` (see ``_fill``)."""
+def load_pytree(path: str, like: Any, *,
+                shardings=None) -> Any:
+    """Load ``path`` into the structure of ``like`` (see ``_fill``): a
+    sharded ``like`` (or ``shardings``) keeps each rank's block of the
+    stored logical arrays."""
+    shardings = shardings or tree_shardings(like)
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        return _fill(like, data, "")
+        return _fill(like, data, "", shardings)
 
 
 class CheckpointManager:
@@ -145,10 +202,15 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
 
-    def save(self, step: int, tree: Any, *, meta: Optional[dict] = None):
-        """Write ``tree`` as step ``step``: copied to host now, written now
-        or on a background thread."""
-        host = to_host(tree)
+    def save(self, step: int, tree: Any, *, meta: Optional[dict] = None,
+             shardings=None):
+        """Write ``tree`` as step ``step``: copied to host now (a sharded
+        tree gathered to its logical arrays: every rank calls it), written
+        by rank 0 now or on a background thread."""
+        shardings = shardings or tree_shardings(tree)
+        host = to_host(tree, shardings)
+        if not _writer(shardings):
+            return
 
         def write():
             _write(self._step_dir(step), host, meta)
@@ -166,9 +228,10 @@ class CheckpointManager:
         for s in steps[: -self.keep]:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
-    def restore(self, step: int, like: Any):
+    def restore(self, step: int, like: Any, *,
+                shardings=None):
         """Checkpoint ``step`` loaded into ``like``."""
-        return load_pytree(self._step_dir(step), like)
+        return load_pytree(self._step_dir(step), like, shardings=shardings)
 
     def latest_step(self) -> Optional[int]:
         """The newest complete step, or None."""
@@ -176,11 +239,12 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
 
-def restore_latest(directory: str, like: Any):
+def restore_latest(directory: str, like: Any, *,
+                   shardings=None):
     """Returns (tree, step) from the newest complete checkpoint, or
     (None, None)."""
     mgr = CheckpointManager(directory, async_write=False)
     step = mgr.latest_step()
     if step is None:
         return None, None
-    return mgr.restore(step, like), step
+    return mgr.restore(step, like, shardings=shardings), step

@@ -22,6 +22,7 @@ from .core.semiring import MP
 from .core.spmat import EllMatrix
 from .models.model import LanguageModel, ModelConfig, build_model
 from .optim import OptState
+from .runtime.sharding import shard_model, shard_tensor
 
 
 def ell_from_numpy(cols, vals, n_cols: int, device="cpu") -> EllMatrix:
@@ -88,16 +89,21 @@ def _jax_leaf(tree, key: str):
 
 
 def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
-                         device="cpu", *, train: bool = False) -> LanguageModel:
+                         device="cpu", *, train: bool = False, mesh=None,
+                         fsdp: bool = False) -> LanguageModel:
     """The port's model holding JAX's parameter pytree ``tree`` (numpy
     arrays): each ``slots[s]`` leaf is unstacked along ``n_periods`` into
     layer ``i``'s parameter, and each leaf is cast to the dtype the port
     stores it in (``train``: f32 for every leaf, with gradients, as
     ``build_model(train=True)``).  The layout stays JAX's ``(d_in,
     d_out)``: no transpose.  Every leaf of ``tree`` must land on one
-    parameter of the model."""
+    parameter of the model.  With ``mesh`` (a ``ProcessGrid``) the result
+    is the rank's sharded model: each leaf's block by the sharding rules
+    (``fsdp`` as JAX's ``apply_sharding_rules``)."""
     model = build_model(cfg, device, train=train)
     _fill_from_tree(model.named_parameters(), tree)
+    if mesh is not None:
+        model = shard_model(model, mesh, fsdp=fsdp)
     return model.eval()
 
 
@@ -122,10 +128,12 @@ def _fill_from_tree(named, tree) -> Dict[str, torch.Tensor]:
 
 
 def lm_train_state_from_numpy(params_tree: Mapping[str, Any], opt_state_tree,
-                              step: int, cfg: ModelConfig, device="cpu"):
+                              step: int, cfg: ModelConfig, device="cpu", *,
+                              mesh=None, fsdp: bool = True):
     """The port's train state ``(model, OptState(mu, nu), step)`` from JAX's
     ``(params, OptState(mu, nu), step)`` as numpy trees: the f32 trainable
-    model, and the moments by the port's parameter names."""
+    model, and the moments by the port's parameter names.  With ``mesh``
+    the rank's blocks, the moments placed like their parameters."""
     model = lm_params_from_numpy(params_tree, cfg, device, train=True)
 
     def moments(tree):
@@ -134,7 +142,13 @@ def lm_train_state_from_numpy(params_tree: Mapping[str, Any], opt_state_tree,
              for n, p in model.named_parameters()), tree)
 
     mu, nu = opt_state_tree
-    return model, OptState(mu=moments(mu), nu=moments(nu)), int(step)
+    mu, nu = moments(mu), moments(nu)
+    if mesh is not None:
+        model = shard_model(model, mesh, fsdp=fsdp)
+        specs = model.sharding.specs
+        mu = {n: shard_tensor(t, specs[n], mesh) for n, t in mu.items()}
+        nu = {n: shard_tensor(t, specs[n], mesh) for n, t in nu.items()}
+    return model, OptState(mu=mu, nu=nu), int(step)
 
 
 def _tree_size(tree) -> int:

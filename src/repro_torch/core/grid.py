@@ -26,7 +26,31 @@ of those collectives:
 * :meth:`psum` / :meth:`pmax` are ``all_reduce`` SUM / MAX over the axis
   subgroup (bool is reduced as int32: gloo reduces no bool);
 * :meth:`all_gather` is the tiled all-gather (list-form ``all_gather`` and
-  ``torch.cat``, the parts in axis-index order).
+  ``torch.cat``, the parts in axis-index order); :meth:`psum_scatter` is
+  ``lax.psum_scatter(tiled=True)`` (``reduce_scatter``, each rank keeping
+  the block of its axis index).
+
+The module functions below the class are the collectives that autograd
+differentiates, each a ``torch.autograd.Function`` over an axis or a tuple
+of axes (the Megatron pairs, and the transposes ``shard_map`` gives):
+
+==========================  ================================
+forward                     backward
+==========================  ================================
+``psum``                    identity
+identity (``enter``)        ``psum``
+``all_gather``              ``psum_scatter``
+``psum_scatter``            ``all_gather``
+``all_gather_replicated``   this rank's block
+``split`` (this block)      ``all_gather``
+``pmax_nograd``             no gradient
+==========================  ================================
+
+A value is *replicated* over an axis when every rank of it holds the same
+value and its cotangent, or *varying* when the ranks hold different
+shares; ``enter`` and ``all_gather`` hand a replicated value to varying
+work (each rank's cotangent is a share, summed in the backward), ``psum``
+and ``psum_scatter`` leave it.
 
 The subgroup of an axis set is built the first time a collective over that
 set is issued: every rank issues the same collectives in the same order, so
@@ -36,8 +60,9 @@ group the grid is 1×1 over the calling process — JAX's one-device mesh.
 
 Each grid counts the bytes of the collectives it issues, by op
 (:attr:`ProcessGrid.collective_bytes`): the gathered buffer of an
-``all_gather``, the reduced buffer of an ``all_reduce`` and the sent buffer
-of a ``permute`` — the conventions of JAX's ``launch/hlo_analysis.py``.
+``all_gather``, the reduced buffer of an ``all_reduce``, the received
+shard of a ``reduce_scatter`` and the sent buffer of a ``permute`` — the
+conventions of JAX's ``launch/hlo_analysis.py``.
 """
 
 from __future__ import annotations
@@ -54,7 +79,7 @@ POD_AXES = ("pod", "data", "model")
 #: the axis names a grid may have; "model" is the column axis of both
 GRID_AXES = (AXES, POD_AXES)
 #: the collectives a grid counts bytes for
-COLLECTIVE_OPS = ("all_gather", "all_reduce", "permute")
+COLLECTIVE_OPS = ("all_gather", "all_reduce", "reduce_scatter", "permute")
 
 Axes = Union[str, Sequence[str]]
 
@@ -276,6 +301,30 @@ class ProcessGrid:
         return torch.cat([_unwire(parts[where[r]], x.dtype)
                           for r in self.members(axes)], dim=dim)
 
+    def psum_scatter(self, x: torch.Tensor, axes: Axes, dim: int = 0
+                     ) -> torch.Tensor:
+        """Tiled ``lax.psum_scatter`` over ``axes``: the sum over the axis
+        group of ``x``, cut into ``n`` blocks along ``dim``; this rank keeps
+        block ``axis_index(axes)``.  ``x.shape[dim]`` must divide by ``n``."""
+        axes = self._axes(axes)
+        n = self.size(axes)
+        if n == 1:
+            return x
+        if x.shape[dim] % n:
+            raise ValueError(f"psum_scatter of {x.shape[dim]} over {n} ranks")
+        dtype = x.dtype
+        buf = x.to(torch.int32) if dtype == torch.bool else x
+        blocks = list(buf.chunk(n, dim=dim))
+        # the group's blocks in global-rank order: rank r receives its block
+        by_rank = sorted(self.members(axes))
+        order = {r: t for t, r in enumerate(self.members(axes))}
+        ins = [blocks[order[r]].contiguous() for r in by_rank]
+        out = torch.empty_like(ins[0])
+        dist.reduce_scatter(out, ins, op=dist.ReduceOp.SUM,
+                            group=self._group(axes))
+        self.collective_bytes["reduce_scatter"] += _nbytes(out)
+        return out.to(dtype) if dtype == torch.bool else out
+
 
 def _unravel(rank: int, sizes: Sequence[int]) -> Tuple[int, ...]:
     coords = []
@@ -350,3 +399,137 @@ def resolve_row_axes(grid: ProcessGrid,
         raise ValueError(f"row_axes {row_axes}: grid rows take axes of "
                          f"{grid.row_axes}, in that order")
     return row_axes
+
+
+# ---------------------------------------------------------------------------
+# Collectives that autograd differentiates (see the module docstring)
+# ---------------------------------------------------------------------------
+
+
+def _block(x: torch.Tensor, grid: ProcessGrid, axes: Axes, dim: int
+           ) -> torch.Tensor:
+    """This rank's block of ``x`` cut into ``size(axes)`` blocks on ``dim``."""
+    n = grid.size(axes)
+    if n == 1:
+        return x
+    step = x.shape[dim] // n
+    return x.narrow(dim, grid.axis_index(axes) * step, step)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grid, axes):
+        return grid.psum(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grid, axes):
+        ctx.grid, ctx.axes = grid, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.grid.psum(g.contiguous(), ctx.axes), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grid, axes, dim, replicated):
+        ctx.grid, ctx.axes, ctx.dim, ctx.rep = grid, axes, dim, replicated
+        return grid.all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.rep:
+            out = _block(g, ctx.grid, ctx.axes, ctx.dim).contiguous()
+        else:
+            out = ctx.grid.psum_scatter(g.contiguous(), ctx.axes, ctx.dim)
+        return out, None, None, None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grid, axes, dim):
+        ctx.grid, ctx.axes, ctx.dim = grid, axes, dim
+        return grid.psum_scatter(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.grid.all_gather(g.contiguous(), ctx.axes, ctx.dim), None, \
+            None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grid, axes, dim):
+        ctx.grid, ctx.axes, ctx.dim = grid, axes, dim
+        return _block(x, grid, axes, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.grid.all_gather(g.contiguous(), ctx.axes, ctx.dim), None, \
+            None, None
+
+
+def psum(grid: ProcessGrid, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+    """``psum`` whose backward is the identity: each rank's share of a sum
+    that replicated work then uses gets the whole cotangent."""
+    return x if grid.size(axes) == 1 else _Psum.apply(x, grid, axes)
+
+
+def enter(grid: ProcessGrid, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+    """Identity whose backward is ``psum``: a replicated value (a weight,
+    an activation) handed to work that each rank of ``axes`` does on its
+    own share; the shares of its cotangent are summed."""
+    return x if grid.size(axes) == 1 else _Enter.apply(x, grid, axes)
+
+
+def all_gather(grid: ProcessGrid, x: torch.Tensor, axes: Axes, dim: int = 0
+               ) -> torch.Tensor:
+    """Tiled ``all_gather`` whose backward is ``psum_scatter``: the gathered
+    value feeds varying work (a column-parallel product, a vocab shard)."""
+    if grid.size(axes) == 1:
+        return x
+    return _AllGather.apply(x, grid, axes, dim, False)
+
+
+def all_gather_replicated(grid: ProcessGrid, x: torch.Tensor, axes: Axes,
+                          dim: int = 0) -> torch.Tensor:
+    """Tiled ``all_gather`` whose backward keeps this rank's block of the
+    cotangent: the gathered value feeds work every rank repeats."""
+    if grid.size(axes) == 1:
+        return x
+    return _AllGather.apply(x, grid, axes, dim, True)
+
+
+def psum_scatter(grid: ProcessGrid, x: torch.Tensor, axes: Axes, dim: int = 0
+                 ) -> torch.Tensor:
+    """Tiled ``psum_scatter`` whose backward is ``all_gather`` (a
+    row-parallel product's partial sums into the sequence-parallel
+    layout)."""
+    if grid.size(axes) == 1:
+        return x
+    return _PsumScatter.apply(x, grid, axes, dim)
+
+
+def split(grid: ProcessGrid, x: torch.Tensor, axes: Axes, dim: int = 0
+          ) -> torch.Tensor:
+    """This rank's block of a replicated value (backward ``all_gather``)."""
+    if grid.size(axes) == 1:
+        return x
+    return _Split.apply(x, grid, axes, dim)
+
+
+def pmax_nograd(grid: ProcessGrid, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+    """The maximum over ``axes`` of ``x`` with no gradient, as JAX's CE
+    takes it: the stop-gradient local maxima all-gathered, then reduced."""
+    x = x.detach()
+    n = grid.size(axes)
+    if n == 1:
+        return x
+    return grid.all_gather(x[None], axes, dim=0).amax(dim=0)

@@ -10,6 +10,10 @@ without one.  Prompts come from ``np.random.default_rng(seed)`` as JAX's
 serve draws them, so a prompt is the same in both packages; parameters
 come from a ``torch.Generator`` seeded with ``--seed`` (JAX's
 distributions, not JAX's numbers).
+
+``serve(..., mesh=grid)`` runs the same loop on a ``ProcessGrid``: the
+model is the rank's sharded model, the prompt its rows, the caches
+sequence-sharded over ``"model"`` and decoded split-KV.
 """
 
 from __future__ import annotations
@@ -72,12 +76,17 @@ def make_prompt(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
 
 
 def step_input(cfg: ModelConfig, params: LanguageModel,
-               tok: torch.Tensor) -> Dict[str, torch.Tensor]:
+               tok: torch.Tensor, mesh=None) -> Dict[str, torch.Tensor]:
     """The decode input of tokens ``tok`` (B, 1): the ids, or for the embed
-    frontend ``unembed.T[tok]`` cast to bf16 (JAX serve's pseudo-embedding)."""
+    frontend ``unembed.T[tok]`` cast to bf16 (JAX serve's pseudo-embedding;
+    on a grid the rank's block of ``unembed``, sharded on ``d_model``, is
+    gathered over ``"model"`` along the last dimension)."""
     if cfg.frontend == "token":
         return {"tokens": tok}
-    return {"embeddings": params.unembed.T[tok.long()].to(torch.bfloat16)}
+    emb = params.unembed.T[tok.long()]
+    if mesh is not None and emb.shape[-1] != cfg.d_model:
+        emb = mesh.all_gather(emb.contiguous(), "model", dim=-1)
+    return {"embeddings": emb.to(torch.bfloat16)}
 
 
 def _sync(device: torch.device) -> None:
@@ -87,15 +96,28 @@ def _sync(device: torch.device) -> None:
 
 def serve(cfg: ModelConfig, params: LanguageModel,
           prompt: Dict[str, torch.Tensor], *, gen: int,
-          max_len: Optional[int] = None) -> ServeResult:
+          max_len: Optional[int] = None, mesh=None) -> ServeResult:
     """Prefill ``prompt`` and decode ``gen - 1`` more tokens greedily (ties
-    to the first maximum) on ``params``' device."""
+    to the first maximum) on ``params``' device.  With ``mesh`` (a
+    ``ProcessGrid``): ``params`` is the rank's sharded model and
+    ``prompt`` its rows of a global batch of ``rows × n_dp``; the tokens
+    returned are the rank's rows."""
     device = params.unembed.device
     first = next(iter(prompt.values()))
     batch, prompt_len = first.shape[0], first.shape[1]
-    caches = init_cache(cfg, batch, max_len or prompt_len + gen, device=device)
-    prefill = make_prefill_step(cfg)
-    step = make_serve_step(cfg)
+    length = max_len or prompt_len + gen
+    if mesh is None:
+        caches = init_cache(cfg, batch, length, device=device)
+        seq_shards = 1
+    else:
+        from ..runtime.sharding import dp_axes
+
+        n_dp = mesh.size(dp_axes(mesh)) if dp_axes(mesh) else 1
+        caches = init_cache(cfg, batch * n_dp, length, device=device,
+                            mesh=mesh, seq_sharded=True)
+        seq_shards = mesh.shape["model"]
+    prefill = make_prefill_step(cfg, mesh=mesh)
+    step = make_serve_step(cfg, mesh=mesh, seq_shards=seq_shards)
 
     _sync(device)
     t0 = time.perf_counter()
@@ -107,7 +129,7 @@ def serve(cfg: ModelConfig, params: LanguageModel,
     t0 = time.perf_counter()
     for i in range(gen - 1):
         logits, caches = step(params, caches,
-                              step_input(cfg, params, toks[-1][:, None]),
+                              step_input(cfg, params, toks[-1][:, None], mesh),
                               prompt_len + i)
         toks.append(torch.argmax(logits, -1).to(torch.int32))
     _sync(device)

@@ -13,7 +13,14 @@ the default) and raises at once without one.  Parameters come from a
 ``torch.Generator`` seeded with ``--seed`` (JAX's distributions, not JAX's
 numbers); to start from JAX's state, write it as this package's checkpoint
 (``convert.lm_train_state_from_numpy``, ``CheckpointManager.save``) and
-pass ``--resume``.  The mesh path waits for ROADMAP queue 1, item 14b.3.
+pass ``--resume``.
+
+``make_state(mesh=)`` and ``build_train_step(mesh=)`` run the step on a
+``ProcessGrid`` (one rank a card): the parameters placed by the sharding
+rules (FSDP by default), the moments beside them, and each rank fed its
+data-parallel rows, ``SyntheticLMData.batch_at(step, shard=dp_index,
+n_shards=n_dp)`` (``rank_batch``).  ``main`` stays JAX's single-device
+entry point.
 """
 
 from __future__ import annotations
@@ -30,29 +37,52 @@ from ..configs import get_config, reduced_config
 from ..core.backend import resolve_device
 from ..data import SyntheticLMData, as_tensors
 from ..models.model import init_params, loss_and_grads
+from ..models.model import as_grid, param_specs
 from ..optim import AdamW, cosine_schedule, global_norm
 from ..runtime import CompressedAllReduce, StragglerMonitor
+from ..runtime.sharding import batch_sharding, dp_axes, shard_model
 
 
-def make_state(cfg, opt: AdamW, gen: torch.Generator):
+def make_state(cfg, opt: AdamW, gen: torch.Generator, mesh=None,
+               fsdp: bool = True):
     """``(model, opt_state, 0)``: a trainable f32 model drawn from ``gen``
-    on its device and zero moments."""
+    on its device and zero moments.  With ``mesh`` (a ``ProcessGrid``;
+    every rank draws the same model from the same seed) each rank keeps
+    its blocks by the sharding rules, and the moments follow them."""
     model = init_params(cfg, gen, train=True)
+    if mesh is not None:
+        model = shard_model(model, as_grid(mesh), fsdp=fsdp)
     return (model, opt.init(dict(model.named_parameters())), 0)
 
 
-def build_train_step(cfg, opt: AdamW, comp: CompressedAllReduce):
+def rank_batch(data: SyntheticLMData, step: int, grid) -> dict:
+    """This rank's rows of step ``step``'s batch on ``grid``: its
+    data-parallel shard, or the whole batch where ``batch_sharding``
+    replicates it."""
+    dp = dp_axes(grid)
+    if not dp or batch_sharding(grid, data.batch_size) == ():
+        return data.batch_at(step)
+    return data.batch_at(step, shard=grid.axis_index(dp),
+                         n_shards=grid.size(dp))
+
+
+def build_train_step(cfg, opt: AdamW, comp: CompressedAllReduce, mesh=None):
     """Returns ``train_step(state, batch, err) -> (state, err, metrics)``:
     the loss's gradients, compressed with error feedback unless
-    ``comp.mode == "none"``, then one optimizer step in place."""
+    ``comp.mode == "none"``, then one optimizer step in place.  With
+    ``mesh`` the batch is the rank's rows and the state its blocks; the
+    gradients are reduced over the data axes and the norm is global."""
+    grid = None if mesh is None else as_grid(mesh)
 
     def train_step(state, batch, err):
         model, opt_state, step = state
-        loss, grads = loss_and_grads(model, batch, cfg)
+        loss, grads = loss_and_grads(model, batch, cfg, mesh=grid)
         if comp.mode != "none":
             grads, err = comp.compress_ef(grads, err)
-        gnorm = global_norm(grads.values())
-        opt.update_(grads, opt_state, dict(model.named_parameters()), step)
+        specs = param_specs(model)
+        gnorm = global_norm(grads, grid=grid, specs=specs)
+        opt.update_(grads, opt_state, dict(model.named_parameters()), step,
+                    grid=grid, specs=specs)
         return (model, opt_state, step + 1), err, {
             "loss": loss, "grad_norm": gnorm}
 

@@ -1,7 +1,7 @@
-"""The language-model substrate of the port: the ten archs' single-device
-serving and training paths (dense / MoE / SSM / hybrid / audio / VLM
-backbones) on torch tensors, the counterpart of ``repro.models``.  The
-mesh paths wait for ROADMAP queue 1, item 14b.3."""
+"""The language-model substrate of the port: the ten archs' serving and
+training paths (dense / MoE / SSM / hybrid / audio / VLM backbones) on
+torch tensors, on one device or on a ``ProcessGrid`` (``mesh=``), the
+counterpart of ``repro.models``."""
 
 from .model import (  # noqa: F401
     LanguageModel,

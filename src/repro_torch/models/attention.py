@@ -13,9 +13,16 @@ over a KV cache.
   with ``dynamic_update_slice``'s clamp of the start.
 
 With gradients on, each KV block step is recomputed in the backward (JAX's
-``jax.checkpoint`` of ``kv_step``).  The mesh paths
-(``decode_attention_sharded``, ``cache_update_sharded``) wait for the
-model's grid port (ROADMAP queue 1, item 14b.3).
+``jax.checkpoint`` of ``kv_step``).
+
+On a :class:`~repro_torch.core.grid.ProcessGrid` whose ``"model"`` axis
+shards the cache's sequence, ``decode_attention_sharded`` is JAX's
+shard_map body (the FlashDecoding split-KV merge): each rank scores its
+KV slice, and the merge is a ``pmax`` and two ``psum`` calls.
+``cache_update_sharded`` is the owner-writes decode update, and
+``cache_update_owned`` the GSPMD ``dynamic_update_slice`` of a longer
+write (a prefill) into a sequence-sharded cache: each rank writes the part
+of the clamped range it holds.
 """
 
 from __future__ import annotations
@@ -168,4 +175,71 @@ def cache_update(k_cache: torch.Tensor, v_cache: torch.Tensor,
     start = max(0, min(int(pos), k_cache.shape[1] - s_new))
     k_cache[:, start:start + s_new] = k_new.to(k_cache.dtype)
     v_cache[:, start:start + s_new] = v_new.to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def decode_attention_sharded(q, k_cache, v_cache, cur_len, *, mesh,
+                             seq_axis: str = "model", window=None):
+    """FlashDecoding split-KV decode (JAX's shard_map body, op for op):
+    ``k_cache``/``v_cache`` are this rank's (B, S/n, Hkv, D) slice of a
+    cache whose sequence is sharded over ``seq_axis`` of ``mesh`` (a
+    ``ProcessGrid``); ``q`` (B, 1, Hq, D) holds every head.  Positions of
+    the slice are ``idx·s_loc + arange(s_loc)``; the local masked scores
+    are merged by ``pmax`` of the maxima and ``psum`` of the sums and of
+    the P·V products."""
+    from ..core.grid import ProcessGrid
+
+    if not isinstance(mesh, ProcessGrid):
+        raise TypeError(f"mesh must be a ProcessGrid, got {type(mesh).__name__}")
+    b, s_loc, hkv, d = k_cache.shape
+    hq = q.shape[2]
+    g = hq // hkv
+    dev = q.device
+    idx = mesh.axis_index(seq_axis)
+    qr = q.reshape(b, hkv, g, d).float()
+    s_ = torch.matmul(qr, k_cache.float().permute(0, 2, 3, 1)) * _scale(d, dev)
+    pos = idx * s_loc + torch.arange(s_loc, device=dev)
+    cur = torch.as_tensor(cur_len, device=dev).reshape(-1, 1)
+    mask = pos[None, :] < cur
+    if window is not None:
+        mask = mask & (pos[None, :] >= cur - window)
+    s_ = torch.where(mask[:, None, None, :], s_, NEG_INF)
+    m = mesh.pmax(s_.amax(dim=-1), seq_axis)
+    p = torch.exp(s_ - m[..., None])
+    l = mesh.psum(p.sum(dim=-1), seq_axis)
+    o = mesh.psum(torch.matmul(p.to(v_cache.dtype).float(),
+                               v_cache.float().permute(0, 2, 1, 3)), seq_axis)
+    out = o / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def cache_update_sharded(k_cache, v_cache, k_new, v_new, pos, *, mesh,
+                         seq_axis: str = "model"):
+    """Owner-writes one-token update of this rank's (B, S/n, Hkv, D) slice
+    of a sequence-sharded cache, in place (JAX's shard_map body): the rank
+    whose slice holds ``pos`` writes at ``pos − idx·s_loc``; a ``pos``
+    outside the cache is written by no rank."""
+    s_loc = k_cache.shape[1]
+    local = int(pos) - mesh.axis_index(seq_axis) * s_loc
+    if 0 <= local < s_loc:
+        k_cache[:, local:local + 1] = k_new.to(k_cache.dtype)
+        v_cache[:, local:local + 1] = v_new.to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def cache_update_owned(k_cache, v_cache, k_new, v_new, pos, *, mesh,
+                       seq_axis: str = "model"):
+    """``cache_update`` of the logical cache on this rank's sequence slice,
+    in place: the start is clamped to ``[0, S - S_new]`` of the logical
+    length ``S``, as ``lax.dynamic_update_slice`` clamps it, and each rank
+    writes the part of ``[start, start + S_new)`` that its slice holds."""
+    s_loc = k_cache.shape[1]
+    s_tot = s_loc * mesh.size(seq_axis)
+    s_new = k_new.shape[1]
+    start = max(0, min(int(pos), s_tot - s_new))
+    lo = mesh.axis_index(seq_axis) * s_loc
+    a, b = max(start, lo), min(start + s_new, lo + s_loc)
+    if a < b:
+        k_cache[:, a - lo:b - lo] = k_new[:, a - start:b - start].to(k_cache.dtype)
+        v_cache[:, a - lo:b - lo] = v_new[:, a - start:b - start].to(v_cache.dtype)
     return k_cache, v_cache

@@ -1,6 +1,6 @@
 """``ModelConfig``, the model's blocks, and the serving and training step
 factories for the ten language-model archs (the port of
-``repro.models.model``, its single-device paths).
+``repro.models.model``), on one device or on a grid.
 
 * The blocks are ``nn.Module``s whose parameter names follow JAX's tree
   paths one to one: JAX's ``params["slots"][s]["attn"]["wq"][i]`` (leaf
@@ -24,11 +24,29 @@ factories for the ten language-model archs (the port of
   body), so only the residual stream is kept between groups; the loss is
   JAX's sequence-chunked cross entropy, each chunk recomputed too.
 
-The flags that only shape JAX's lowering (``decode_unroll``,
-``batch_over_model``, ``sharded_cache_update``, ``moe_impl`` without a
-mesh) are accepted and change nothing; ``ssd_bf16``, ``ce_chunk`` and
-``bf16_grad_activations`` are honoured.  A ``mesh`` raises: the mesh paths
-wait for ROADMAP queue 1, item 14b.3.
+On a grid (``mesh=`` a :class:`~repro_torch.core.grid.ProcessGrid`, one
+rank a card) the model holds the rank's blocks of its parameters
+(``runtime.sharding.shard_model``), the batch is the rank's rows
+(``batch_sharding``) and the caches its blocks (``init_cache(mesh=)``).
+Where JAX leaves partitioning to GSPMD the result equals JAX's without a
+mesh, and each tensor lies as JAX's constraint places it: the residual
+stream is sequence-parallel over ``"model"`` for the attention archs and
+replicated over it for SSM/hybrid (batch-sharded over it with
+``batch_over_model``, without caches); attention, MLP and the SSD heads
+are tensor-parallel (``layers.Region``); the vocab-sharded embedding looks
+up its own ids and reduce-scatters.  Where JAX fixes the computation by
+``shard_map`` the port follows it collective for collective:
+``moe_ffn_shardmap``, split-KV decode, owner-writes cache updates, and
+the vocab-parallel cross entropy.  Gradients come out as the rank's blocks
+of the single-device gradients: replicated weights used by varying work
+are summed over ``"model"`` by ``enter``, FSDP blocks are reduce-scattered
+over ``"data"``, and every other data axis is summed in
+``loss_and_grads``.
+
+``decode_unroll`` only shapes JAX's lowering and changes nothing here;
+``moe_impl``, ``batch_over_model`` and ``sharded_cache_update`` act on a
+grid; ``ssd_bf16``, ``ce_chunk`` and ``bf16_grad_activations`` are
+honoured everywhere.
 """
 
 from __future__ import annotations
@@ -42,15 +60,49 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..core.grid import (
+    ProcessGrid,
+    all_gather,
+    all_gather_replicated,
+    enter,
+    pmax_nograd,
+    psum,
+    psum_scatter,
+    split,
+)
 from ..optim import global_norm
-from .attention import cache_update, decode_attention, flash_attention
-from .layers import apply_rope, dense, init_dense, rms_norm, rope_freqs
-from .moe import moe_ffn_gspmd
-from .ssm import SSMState, mamba2_forward, mamba2_params_shapes
+from ..runtime.sharding import (
+    GridCaches,
+    cache_sharding,
+    dp_axes,
+    shard_shape,
+    spec_axes,
+    tree_map2,
+)
+from .attention import (
+    cache_update,
+    cache_update_owned,
+    cache_update_sharded,
+    decode_attention,
+    decode_attention_sharded,
+    flash_attention,
+)
+from .layers import (
+    GridCtx,
+    Region,
+    apply_rope,
+    dense,
+    fsdp_gather,
+    init_dense,
+    model_dim,
+    rms_norm,
+    rope_freqs,
+    stream_weight,
+)
+from .moe import ExpertShard, moe_ffn_gspmd, moe_ffn_gspmd_grid, moe_ffn_shardmap
+from .ssm import SSMState, mamba2_forward, mamba2_grid, mamba2_params_shapes
 
 GLOBAL_WINDOW = 2 ** 30  # the window JAX gives a global layer
-_MESH_TODO = ("the model's mesh paths are not ported yet (ROADMAP.md "
-              "queue 1, item 14b.3); pass mesh=None")
 
 
 def _pad_to(x: int, mult: int) -> int:
@@ -235,9 +287,15 @@ class Attention(nn.Module):
             self.k_norm.zero_()
 
     def forward(self, x, cfg: ModelConfig, *, window, positions, cache=None,
-                pos=None, theta=None):
+                pos=None, theta=None, ctx: Optional[GridCtx] = None):
         """x (B, S, D). Returns the block output; a ``cache`` (this layer's
-        ``{"k", "v"}`` views) takes the new keys and values in place."""
+        ``{"k", "v"}`` views) takes the new keys and values in place.
+        ``ctx``: on a grid (``x`` in the stream's layout, ``positions`` of
+        the whole sequence)."""
+        if ctx is not None:
+            return self._forward_grid(x, cfg, ctx, window=window,
+                                      positions=positions, cache=cache,
+                                      pos=pos, theta=theta)
         b, s, _ = x.shape
         hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         q = dense(x, self.wq).reshape(b, s, hq, dh)
@@ -263,6 +321,85 @@ class Attention(nn.Module):
                                   q_offset=0 if cache is None else int(pos))
         return dense(out.reshape(b, s, hq * dh), self.wo)
 
+    def _forward_grid(self, x, cfg: ModelConfig, ctx: GridCtx, *, window,
+                      positions, cache, pos, theta):
+        """Heads over ``"model"`` (``"tp"``: column-parallel ``wq``,
+        replicated ``wk``/``wv``, row-parallel ``wo``); every head on every
+        rank where the heads do not divide (``"rep"``)."""
+        grid = ctx.grid
+        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        if "model" in ctx.batch:
+            mode = "dp"
+        elif (hq % ctx.tp == 0 and model_dim(self, "wq") == 1
+              and model_dim(self, "wo") == 0):
+            mode = "tp"
+        else:
+            mode = "rep"
+        reg = Region(ctx, mode)
+        hl = hq // reg.tp
+        lo = reg.j * hl
+        h = reg.enter(x)
+        b, s, _ = h.shape
+        q = dense(h, reg.w(self, "wq")).reshape(b, s, hl, dh)
+        k = dense(h, reg.w(self, "wk")).reshape(b, s, hkv, dh)
+        v = dense(h, reg.w(self, "wv")).reshape(b, s, hkv, dh)
+        if cfg.qk_norm:
+            q = rms_norm(q, reg.w(self, "q_norm"), cfg.norm_eps)
+            k = rms_norm(k, reg.w(self, "k_norm"), cfg.norm_eps)
+        cos, sin = rope_freqs(positions, dh,
+                              cfg.rope_theta if theta is None else theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        g = hq // hkv
+        if cache is not None:
+            if not ctx.cache_seq:
+                kc, vc = cache_update(cache["k"], cache["v"], k, v, pos)
+            elif s == 1 and ctx.seq_shards > 1 and cfg.sharded_cache_update:
+                kc, vc = cache_update_sharded(cache["k"], cache["v"], k, v,
+                                              pos, mesh=grid)
+            else:
+                kc, vc = cache_update_owned(cache["k"], cache["v"], k, v,
+                                            pos, mesh=grid)
+        if cache is not None and s == 1:
+            cur = int(pos) + s
+            if ctx.cache_seq and ctx.seq_shards > 1:  # split-KV decode
+                qf = grid.all_gather(q, "model", dim=2) if reg.tp > 1 else q
+                cur_t = torch.full((b,), cur, device=q.device)
+                out = decode_attention_sharded(qf, kc, vc, cur_t, mesh=grid,
+                                               window=window)[:, :, lo:lo + hl]
+            else:
+                if ctx.cache_seq:  # a sequence-sharded cache read whole
+                    kc = grid.all_gather(kc, "model", dim=1)
+                    vc = grid.all_gather(vc, "model", dim=1)
+                out = decode_attention(q, _local_kv(kc, hq, hkv, hl, lo),
+                                       _local_kv(vc, hq, hkv, hl, lo), cur,
+                                       window=window)
+        else:
+            # GQA as jnp.repeat: query head h reads KV head h // g
+            kf = k.repeat_interleave(g, dim=2) if g > 1 else k
+            vf = v.repeat_interleave(g, dim=2) if g > 1 else v
+            if hl != hq:
+                kf, vf = kf[:, :, lo:lo + hl], vf[:, :, lo:lo + hl]
+            out = flash_attention(q, kf, vf, causal=True, window=window,
+                                  q_offset=0 if cache is None else int(pos))
+        return reg.leave(dense(out.reshape(b, s, hl * dh), reg.w(self, "wo")))
+
+
+def _local_kv(c: torch.Tensor, hq: int, hkv: int, hl: int, lo: int
+              ) -> torch.Tensor:
+    """The KV heads that query heads ``[lo, lo + hl)`` read (head ``h``
+    reads ``h // (hq/hkv)``), as a (B, S, H', D) cache whose grouping gives
+    each of those query heads its own KV head."""
+    g = hq // hkv
+    if hl == hq:
+        return c
+    if hl % g == 0:
+        return c[:, :, lo // g:(lo + hl) // g]
+    if g % hl == 0:
+        return c[:, :, lo // g:lo // g + 1]
+    idx = (lo + torch.arange(hl, device=c.device)) // g
+    return c.index_select(2, idx)
+
 
 class Mlp(nn.Module):
     """``w_in``/``w_out`` (gelu) or ``w_gate``/``w_up``/``w_down``."""
@@ -283,9 +420,12 @@ class Mlp(nn.Module):
         for w in self.parameters():
             w.copy_(init_dense(gen, *w.shape))
 
-    def forward(self, x, cfg: ModelConfig):
+    def forward(self, x, cfg: ModelConfig, ctx: Optional[GridCtx] = None):
         """gelu: ``dense(gelu(x·w_in), w_out)``; swiglu / geglu: gated by
-        silu / gelu.  ``jax.nn.gelu`` is the tanh form."""
+        silu / gelu.  ``jax.nn.gelu`` is the tanh form.  ``ctx``: on a
+        grid, column-parallel then row-parallel over ``"model"``."""
+        if ctx is not None:
+            return self._forward_grid(x, cfg, ctx)
         if cfg.mlp_type == "gelu":
             return dense(F.gelu(dense(x, self.w_in), approximate="tanh"),
                          self.w_out)
@@ -293,6 +433,27 @@ class Mlp(nn.Module):
         g = (F.gelu(g, approximate="tanh") if cfg.mlp_type == "geglu"
              else F.silu(g))
         return dense(g * dense(x, self.w_up), self.w_down)
+
+    def _forward_grid(self, x, cfg: ModelConfig, ctx: GridCtx):
+        cols, rows = (("w_in", "w_out") if cfg.mlp_type == "gelu"
+                      else ("w_up", "w_down"))
+        if "model" in ctx.batch:
+            mode = "dp"
+        elif model_dim(self, cols) == 1 and model_dim(self, rows) == 0:
+            mode = "tp"
+        else:
+            mode = "rep"
+        reg = Region(ctx, mode)
+        h = reg.enter(x)
+        if cfg.mlp_type == "gelu":
+            y = dense(F.gelu(dense(h, reg.w(self, "w_in")), approximate="tanh"),
+                      reg.w(self, "w_out"))
+        else:
+            g = dense(h, reg.w(self, "w_gate"))
+            g = (F.gelu(g, approximate="tanh") if cfg.mlp_type == "geglu"
+                 else F.silu(g))
+            y = dense(g * dense(h, reg.w(self, "w_up")), reg.w(self, "w_down"))
+        return reg.leave(y)
 
 
 class Moe(nn.Module):
@@ -323,13 +484,55 @@ class Moe(nn.Module):
         if hasattr(self, "shared"):
             self.shared.init(gen)
 
-    def forward(self, x, cfg: ModelConfig):
-        """x (B, S, D): routed experts plus the shared MLP."""
+    def forward(self, x, cfg: ModelConfig, ctx: Optional[GridCtx] = None):
+        """x (B, S, D): routed experts plus the shared MLP.  ``ctx``: on a
+        grid, the experts sharded over ``"model"`` (``cfg.moe_impl``:
+        ``moe_ffn_shardmap``, or JAX's global dispatch)."""
+        if ctx is not None:
+            return self._forward_grid(x, cfg, ctx)
         b, s, d = x.shape
         y = moe_ffn_gspmd(x.reshape(b * s, d), self, n_experts_real=cfg.n_experts,
                           top_k=cfg.top_k).reshape(b, s, d)
         if hasattr(self, "shared"):
             y = y + self.shared(x, cfg)
+        return y
+
+    def _forward_grid(self, x, cfg: ModelConfig, ctx: GridCtx):
+        grid = ctx.grid
+        tp_ok = model_dim(self, "w_gate") == 0
+        reg = Region(ctx, "tp" if tp_ok else "rep")
+        h = reg.enter(x)
+        b, s, d = h.shape
+        xt = h.reshape(b * s, d)
+        kw = {"n_experts_real": cfg.n_experts, "top_k": cfg.top_k}
+        experts = [fsdp_gather(grid, self, n) if tp_ok else reg.w_full(self, n)
+                   for n in ("w_gate", "w_up", "w_down")]
+        p = ExpertShard(reg.w(self, "router"), *experts)
+        dp = dp_axes(grid)
+        n_dp = grid.size(dp) if dp else 1
+        rows_sharded = n_dp == 1 or set(dp) <= set(ctx.batch)
+        if not tp_ok:  # experts replicated: JAX's global dispatch, whole
+            y = reg.leave(moe_ffn_gspmd(xt, p, **kw).reshape(b, s, d))
+        elif cfg.moe_impl == "shardmap":
+            # the token block P(token_axes) gives: the contiguous 1/n_dp
+            # block of the flattened (B·S) tokens
+            blk = xt
+            if not rows_sharded:
+                t = xt.shape[0] // n_dp
+                blk = xt.narrow(0, grid.axis_index(dp) * t, t)
+            y = moe_ffn_shardmap(blk, p, mesh=grid, token_axes=dp, **kw)
+            if not rows_sharded:
+                y = all_gather_replicated(grid, y, dp, 0)
+            y = y.reshape(b, s, d)
+            y = split(grid, y, "model", 1) if ctx.seq else y
+        else:  # gspmd under a grid: capacity from every token
+            xa = all_gather(grid, xt, dp, 0) if rows_sharded else xt
+            y = moe_ffn_gspmd_grid(xa, p, mesh=grid, **kw)
+            if rows_sharded and n_dp > 1:
+                y = y.narrow(0, grid.axis_index(dp) * xt.shape[0], xt.shape[0])
+            y = reg.leave(y.reshape(b, s, d))
+        if hasattr(self, "shared"):
+            y = y + self.shared(x, cfg, ctx=ctx)
         return y
 
 
@@ -365,8 +568,12 @@ class Mamba2(nn.Module):
         self.d_skip.fill_(1.0)
         self.norm.zero_()
 
-    def forward(self, x, cfg: ModelConfig, state: Optional[SSMState] = None):
-        """x (B, S, D). Returns (y, SSMState)."""
+    def forward(self, x, cfg: ModelConfig, state: Optional[SSMState] = None,
+                ctx: Optional[GridCtx] = None):
+        """x (B, S, D). Returns (y, SSMState); ``ctx``: on a grid."""
+        if ctx is not None:
+            return mamba2_grid(x, self, cfg, ctx, state=state,
+                               chunk=cfg.ssd_chunk)
         return mamba2_forward(x, self, cfg, state=state, chunk=cfg.ssd_chunk)
 
 
@@ -404,36 +611,43 @@ class SlotBlock(nn.Module):
                 getattr(self, name).init(gen)
 
     def forward(self, x, cfg: ModelConfig, *, positions, layer_idx: int,
-                cache=None, pos=None):
+                cache=None, pos=None, ctx: Optional[GridCtx] = None):
         """x (B, S, D). Returns the new x; a ``cache`` (this layer's views of
-        the stacked caches) is updated in place."""
+        the stacked caches) is updated in place.  ``ctx``: on a grid, ``x``
+        in the stream's layout and ``positions`` of the whole sequence."""
         kind = self.kind
-        h = rms_norm(x, self.ln1, cfg.norm_eps)
+
+        def nw(name):  # a norm scale on the stream
+            return getattr(self, name) if ctx is None else stream_weight(
+                ctx, self, name)
+
+        h = rms_norm(x, nw("ln1"), cfg.norm_eps)
         if kind in ("attn", "attn_local"):
             window, theta = layer_attn(cfg, kind, layer_idx)
             x = x + self.attn(h, cfg, window=window, positions=positions,
-                              cache=cache, pos=pos, theta=theta)
+                              cache=cache, pos=pos, theta=theta, ctx=ctx)
         elif kind == "ssm":
-            x = x + self._ssm(h, cfg, cache)
+            x = x + self._ssm(h, cfg, cache, ctx)
         else:  # hybrid: parallel attn + ssm heads
             window, _ = layer_attn(cfg, kind, layer_idx)
             a = self.attn(h, cfg, window=window, positions=positions,
-                          cache=None if cache is None else cache["attn"], pos=pos)
-            m = self._ssm(h, cfg, None if cache is None else cache["ssm"])
-            x = x + 0.5 * (rms_norm(a, self.bnorm_a, cfg.norm_eps)
-                           + rms_norm(m, self.bnorm_s, cfg.norm_eps))
+                          cache=None if cache is None else cache["attn"], pos=pos,
+                          ctx=ctx)
+            m = self._ssm(h, cfg, None if cache is None else cache["ssm"], ctx)
+            x = x + 0.5 * (rms_norm(a, nw("bnorm_a"), cfg.norm_eps)
+                           + rms_norm(m, nw("bnorm_s"), cfg.norm_eps))
         if hasattr(self, "mlp") or hasattr(self, "moe"):
-            h2 = rms_norm(x, self.ln2, cfg.norm_eps)
+            h2 = rms_norm(x, nw("ln2"), cfg.norm_eps)
             ffn = self.mlp if hasattr(self, "mlp") else self.moe
-            x = x + ffn(h2, cfg)
+            x = x + ffn(h2, cfg, ctx=ctx)
         if cfg.bf16_grad_activations:
             x = bf16_grad_barrier(x)
         return x
 
-    def _ssm(self, h, cfg: ModelConfig, cache):
+    def _ssm(self, h, cfg: ModelConfig, cache, ctx=None):
         """The Mamba-2 mixer; its new state goes into ``cache`` in place."""
         state = None if cache is None else SSMState(cache["h"], cache["conv"])
-        y, st = self.ssm(h, cfg, state)
+        y, st = self.ssm(h, cfg, state, ctx=ctx)
         if cache is not None:
             cache["h"].copy_(st.h)
             cache["conv"].copy_(st.conv)
@@ -467,33 +681,67 @@ class LanguageModel(nn.Module):
             for s in range(self.cfg.period):
                 self.slots[s][i].init(gen)
 
-    def forward(self, batch, cfg: ModelConfig, *, caches=None, pos=None):
+    def forward(self, batch, cfg: ModelConfig, *, caches=None, pos=None,
+                ctx: Optional[GridCtx] = None):
         """batch: ``{"tokens": (B, S)}`` or ``{"embeddings": (B, S, D)}``.
         Returns (hidden (B, S, D) after ``final_norm``, caches).  Without
         caches, with gradients on, each period group is recomputed in the
-        backward (JAX's ``jax.checkpoint`` of the layer scan body)."""
+        backward (JAX's ``jax.checkpoint`` of the layer scan body).
+        ``ctx``: on a grid; the hidden state is in the stream's layout."""
         dt = cfg.torch_dtype
-        if cfg.frontend == "token":
+        if ctx is not None:
+            x = self._embed_grid(batch, cfg, ctx)
+        elif cfg.frontend == "token":
             x = self.embed[batch["tokens"].long()].to(dt)
         else:
             x = batch["embeddings"].to(dt)
-        s = x.shape[1]
+        s = next(iter(batch.values())).shape[1]
         base = 0 if pos is None else int(pos)
         positions = base + torch.arange(s, device=x.device)
         remat = (caches is None and torch.is_grad_enabled()
                  and any(p.requires_grad for p in self.parameters()))
         for i in range(cfg.n_periods):
             if remat:
-                x = self._remat_group(x, cfg, i, positions)
+                x = self._remat_group(x, cfg, i, positions, ctx)
                 continue
             for slot in range(cfg.period):
                 sc = None if caches is None else _layer_cache(caches[slot], i)
                 x = self.slots[slot][i](
                     x, cfg, positions=positions, layer_idx=i * cfg.period + slot,
-                    cache=sc, pos=pos)
-        return rms_norm(x, self.final_norm, cfg.norm_eps), caches
+                    cache=sc, pos=pos, ctx=ctx)
+        fin = (self.final_norm if ctx is None
+               else stream_weight(ctx, self, "final_norm"))
+        return rms_norm(x, fin, cfg.norm_eps), caches
 
-    def _remat_group(self, x, cfg: ModelConfig, i: int, positions):
+    def _embed_grid(self, batch, cfg: ModelConfig, ctx: GridCtx):
+        """The stream's first value in its layout: the vocab-sharded lookup
+        gives each rank its own ids' rows (zeros elsewhere), summed over
+        ``"model"`` into the layout (a reduce-scatter under sequence
+        parallelism)."""
+        grid, dt = ctx.grid, cfg.torch_dtype
+        partial = False
+        if cfg.frontend != "token":
+            x = batch["embeddings"].to(dt)
+        elif model_dim(self, "embed") == 0:
+            ids = batch["tokens"].long()
+            emb = fsdp_gather(grid, self, "embed")
+            v_loc = emb.shape[0]
+            loc = ids - grid.axis_index("model") * v_loc
+            ok = (loc >= 0) & (loc < v_loc)
+            rows = emb[loc.clamp(0, v_loc - 1)]
+            x = torch.where(ok[..., None], rows, torch.zeros_like(rows)).to(dt)
+            partial = True
+        else:
+            x = fsdp_gather(grid, self, "embed")[batch["tokens"].long()].to(dt)
+        if ctx.seq:
+            dim = 1
+        elif "model" in ctx.batch:
+            dim = 0
+        else:
+            return psum(grid, x, "model") if partial else x
+        return (psum_scatter if partial else split)(grid, x, "model", dim)
+
+    def _remat_group(self, x, cfg: ModelConfig, i: int, positions, ctx=None):
         """Period group ``i`` (layer ``i`` of every slot) under
         ``torch.utils.checkpoint``: only ``x`` and the group's parameters
         are kept, and the backward runs the group again.  The parameters
@@ -508,7 +756,7 @@ class LanguageModel(nn.Module):
                 x = torch.func.functional_call(
                     blk, {n: next(it) for n, _ in nm}, (x, cfg),
                     {"positions": positions,
-                     "layer_idx": i * cfg.period + slot})
+                     "layer_idx": i * cfg.period + slot, "ctx": ctx})
             return x
 
         return checkpoint(run, x, *(p for nm in named for _, p in nm),
@@ -549,16 +797,60 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     return model.eval()
 
 
+def as_grid(mesh) -> ProcessGrid:
+    """``mesh`` if it is a ``ProcessGrid``; anything else raises."""
+    if not isinstance(mesh, ProcessGrid):
+        raise TypeError(
+            f"mesh must be a repro_torch.core.grid.ProcessGrid, got "
+            f"{type(mesh).__name__}: a ProcessGrid over torch.distributed "
+            f"ranks is the port's counterpart of a JAX device mesh")
+    return mesh
+
+
+def grid_ctx(cfg: ModelConfig, grid: ProcessGrid, batch, caches=None,
+             seq_shards: int = 1) -> GridCtx:
+    """The stream's layout for ``batch`` (the rank's rows unless the
+    caches say the batch is replicated): JAX's ``_csc`` specs
+    ``(resid batch axes, resid seq axis, None)`` with axes that do not
+    divide dropped."""
+    first = next(iter(batch.values()))
+    b, s = first.shape[0], first.shape[1]
+    tp = grid.shape["model"]
+    gc = isinstance(caches, GridCaches)
+    batch_axes = dp_axes(grid) if (not gc or caches.batch_sharded) else ()
+    if (cfg.batch_over_model and cfg.family in ("ssm", "hybrid")
+            and caches is None and b % tp == 0
+            and (batch_axes or not dp_axes(grid))):
+        batch_axes = batch_axes + ("model",)
+    seq = ("model" if cfg.family not in ("ssm", "hybrid") and s % tp == 0
+           else None)
+    return GridCtx(grid, batch=batch_axes, seq=seq,
+                   cache_seq=gc and caches.kv_seq_sharded,
+                   seq_shards=seq_shards)
+
+
+def _forward(params, batch, cfg: ModelConfig, mesh, caches, pos,
+             seq_shards: int):
+    """``forward``'s body: (hidden, caches, the grid layout or None)."""
+    ctx = None
+    if mesh is not None:
+        ctx = grid_ctx(cfg, as_grid(mesh), batch, caches, seq_shards)
+    grad = torch.no_grad() if caches is not None else contextlib.nullcontext()
+    with grad:
+        x, caches = params(batch, cfg, caches=caches, pos=pos, ctx=ctx)
+    return x, caches, ctx
+
+
 def forward(params: LanguageModel, batch, cfg: ModelConfig, *, mesh=None,
             caches=None, pos=None, seq_shards: int = 1):
     """Full stack. Returns (hidden (B, S, D), caches updated in place).
     With caches it runs without gradients; without, it records them where
-    a parameter wants one."""
-    if mesh is not None or seq_shards != 1:
-        raise NotImplementedError(_MESH_TODO)
-    grad = torch.no_grad() if caches is not None else contextlib.nullcontext()
-    with grad:
-        return params(batch, cfg, caches=caches, pos=pos)
+    a parameter wants one.  On a grid (``mesh``) the hidden state is the
+    rank's block in the stream's layout, and ``seq_shards > 1`` with
+    sequence-sharded caches decodes split-KV (as JAX, ``seq_shards`` only
+    acts with a mesh)."""
+    x, caches, _ = _forward(params, batch, cfg, mesh, caches, pos, seq_shards)
+    return x, caches
 
 
 def unembed_logits(x_last: torch.Tensor, unembed: torch.Tensor) -> torch.Tensor:
@@ -568,10 +860,26 @@ def unembed_logits(x_last: torch.Tensor, unembed: torch.Tensor) -> torch.Tensor:
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=None,
-               device=None) -> List[Any]:
+               device=None, *, mesh=None, seq_sharded: bool = False
+               ) -> List[Any]:
     """Per-period-slot stacked caches: ``{"k", "v"}`` (attention),
     ``{"h" (f32), "conv"}`` (SSM), both under ``"attn"``/``"ssm"``
-    (hybrid).  ``device="meta"`` gives the shapes without memory."""
+    (hybrid).  ``device="meta"`` gives the shapes without memory.  With
+    ``mesh`` (a ``ProcessGrid``): the rank's zero blocks of the caches of
+    ``batch_size`` rows by ``cache_sharding(seq_sharded=)``, as a
+    ``GridCaches``."""
+    if mesh is not None:
+        grid = as_grid(mesh)
+        logical = init_cache(cfg, batch_size, max_len, dtype, device="meta")
+        specs = cache_sharding(grid, logical, seq_sharded=seq_sharded)
+        local = tree_map2(lambda c, sp: torch.zeros(
+            shard_shape(c.shape, sp, grid), dtype=c.dtype, device=device),
+            logical, specs)
+        bsh = batch_size % max(1, grid.size(dp_axes(grid))) == 0
+        kv = (seq_sharded and max_len % grid.shape["model"] == 0
+              and cfg.family != "ssm")
+        return GridCaches(local, grid=grid, specs=specs, batch_sharded=bsh,
+                          kv_seq_sharded=kv)
     dt = dtype or cfg.torch_dtype
     if isinstance(dt, str):
         dt = getattr(torch, dt)
@@ -611,15 +919,40 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=None,
     return caches
 
 
+def _last_logits(params: LanguageModel, x: torch.Tensor,
+                 ctx: Optional[GridCtx]) -> torch.Tensor:
+    """The last position's f32 logits (B, V_padded) of hidden ``x``; on a
+    grid every model rank gets the rank's rows' whole logits (``unembed``
+    sharded on ``d_model``: partial products summed over ``"model"``)."""
+    if ctx is None:
+        return unembed_logits(x[:, -1], params.unembed)
+    grid = ctx.grid
+    with torch.no_grad():
+        last = x[:, -1:]
+        if ctx.seq:  # the last position lives on the last model rank
+            last = grid.all_gather(last.contiguous(), "model", dim=1)[:, -1:]
+        last = last[:, 0]
+        w = params.unembed
+        md = model_dim(params, "unembed")
+        if md == 0:
+            lo = grid.axis_index("model") * w.shape[0]
+            part = unembed_logits(last[:, lo:lo + w.shape[0]], w)
+            return grid.psum(part, "model")
+        if md == 1:
+            return grid.all_gather(unembed_logits(last, w), "model", dim=1)
+        return unembed_logits(last, w)
+
+
 def make_serve_step(cfg: ModelConfig, *, mesh=None, seq_shards: int = 1):
     """Returns ``serve_step(params, caches, batch, pos) -> (logits, caches)``:
-    one decode step at position ``pos``, f32 logits (B, V_padded)."""
-    if mesh is not None or seq_shards != 1:
-        raise NotImplementedError(_MESH_TODO)
+    one decode step at position ``pos``, f32 logits (B, V_padded).  On a
+    grid: the rank's rows, split-KV decode over ``seq_shards`` model ranks
+    when the caches' sequence is sharded."""
 
     def serve_step(params, caches, batch, pos):
-        x, caches = forward(params, batch, cfg, caches=caches, pos=pos)
-        return unembed_logits(x[:, -1], params.unembed), caches
+        x, caches, ctx = _forward(params, batch, cfg, mesh, caches, pos,
+                                  seq_shards)
+        return _last_logits(params, x, ctx), caches
 
     return serve_step
 
@@ -627,12 +960,10 @@ def make_serve_step(cfg: ModelConfig, *, mesh=None, seq_shards: int = 1):
 def make_prefill_step(cfg: ModelConfig, *, mesh=None):
     """Returns ``prefill(params, caches, batch) -> (logits, caches)``: the
     prompt into the caches at position 0, the last token's f32 logits."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
 
     def prefill(params, caches, batch):
-        x, caches = forward(params, batch, cfg, caches=caches, pos=0)
-        return unembed_logits(x[:, -1], params.unembed), caches
+        x, caches, ctx = _forward(params, batch, cfg, mesh, caches, 0, 1)
+        return _last_logits(params, x, ctx), caches
 
     return prefill
 
@@ -676,16 +1007,64 @@ def _ce_chunk(xi, li, w, vocab_size: int):
     return torch.sum((lse - gold[..., 0]) * wt), torch.sum(wt)
 
 
+class _VocabLse(torch.autograd.Function):
+    """logsumexp over the vocab sharded across ``"model"``: the
+    stop-gradient local maxima all-gathered, ``psum`` of the exp-sums.
+    The backward is logsumexp's own, ``g · exp(logits − lse)`` on the
+    rank's vocab ids (no collective: the cotangent of the replicated
+    ``lse`` is whole on every rank), so one rank computes exactly what
+    ``torch.logsumexp`` computes."""
+
+    @staticmethod
+    def forward(ctx, logits, grid):
+        m = pmax_nograd(grid, logits.amax(dim=-1), "model")
+        se = grid.psum(torch.exp(logits - m[..., None]).sum(dim=-1), "model")
+        lse = torch.log(se) + m
+        ctx.save_for_backward(logits, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse = ctx.saved_tensors
+        return g[..., None] * torch.exp(logits - lse[..., None]), None
+
+
+def _ce_chunk_vp(xi, li, w, vocab_size: int, grid, dp, v_lo: int):
+    """One chunk of the vocab-parallel CE (JAX's ``ce_local``): logits
+    over the rank's vocab ids ``v_lo + arange(v_loc)``, masked at
+    ``vocab_size``; the stop-gradient maximum all-gathered over
+    ``"model"`` and ``psum`` of the exp-sums (``_VocabLse``); ``psum`` of
+    the gold logit over ``"model"``; ``psum`` of the loss and count over
+    the data axes."""
+    logits = torch.matmul(xi.float(), w)
+    vids = v_lo + torch.arange(logits.shape[-1], device=logits.device)
+    logits = logits.masked_fill(vids >= vocab_size, -1e30)
+    lse = _VocabLse.apply(logits, grid)
+    gold = psum(grid, torch.where(vids == li[..., None].long(), logits,
+                                  0.0).sum(dim=-1), "model")
+    wt = (li >= 0).float()
+    loss = torch.sum((lse - gold) * wt)
+    cnt = torch.sum(wt)
+    if dp:
+        loss, cnt = psum(grid, loss, dp), psum(grid, cnt, dp)
+    return loss, cnt
+
+
 def chunked_ce_loss(x, labels, w_unembed, cfg: ModelConfig, *, mesh=None):
-    """Sequence-chunked cross entropy (JAX's single-device branch).  x (B,
-    S, D); labels (B, S) int (−1 = ignore).  Chunks of ``min(ce_chunk, S)``
-    tokens, the tail padded with label −1; logits are the f32 product of
-    the upcast operands (``unembed`` cast to ``x``'s dtype first, as JAX's
+    """Sequence-chunked cross entropy.  x (B, S, D); labels (B, S) int (−1
+    = ignore).  Chunks of ``min(ce_chunk, S)`` tokens, the tail padded with
+    label −1; logits are the f32 product of the upcast operands
+    (``unembed`` cast to ``x``'s dtype first, as JAX's
     ``w.astype(xi.dtype)``), and each chunk is recomputed in the backward,
     so the (B·S, vocab) logits never exist.  Returns Σ loss / max(Σ
-    weight, 1)."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    weight, 1).
+
+    On a grid (``mesh``) it is JAX's vocab-parallel branch: ``x`` and
+    ``labels`` are the rank's rows, ``w_unembed`` the rank's block of the
+    unembed (sharded on ``d_model`` as the rules place it, whole, or
+    already the rank's vocab columns), each rank scores
+    ``vocab_padded / tp`` vocab ids, and the loss is the global token
+    mean, the same on every rank."""
     b, s, _ = x.shape
     cs = min(cfg.ce_chunk, s)
     n_chunks = -(-s // cs)
@@ -693,17 +1072,33 @@ def chunked_ce_loss(x, labels, w_unembed, cfg: ModelConfig, *, mesh=None):
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad), value=-1)
-    w = w_unembed.to(x.dtype).float()
+    w = w_unembed
+    fn, extra = _ce_chunk, (cfg.vocab_size,)
+    if mesh is not None:
+        grid = as_grid(mesh)
+        tp, d = grid.shape["model"], x.shape[-1]
+        v_loc = cfg.vocab_padded // tp
+        v_lo = grid.axis_index("model") * v_loc
+        if w.shape[0] != d:  # sharded on d_model: the whole unembed
+            w = all_gather(grid, w, "model", 0)
+        elif w.shape[1] == cfg.vocab_padded:
+            w = enter(grid, w, "model")
+        if w.shape[1] == cfg.vocab_padded:
+            w = w[:, v_lo:v_lo + v_loc]
+        fn, extra = _ce_chunk_vp, (cfg.vocab_size, grid, dp_axes(grid), v_lo)
+        # x is replicated over "model" and each rank scores its own vocab
+        # ids: the shares of x's cotangent are summed
+        x = enter(grid, x, "model")
+    w = w.to(x.dtype).float()
     remat = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(n_chunks):
         xi, li = x[:, c * cs:(c + 1) * cs], labels[:, c * cs:(c + 1) * cs]
         if remat:
-            loss, wt = checkpoint(_ce_chunk, xi, li, w, cfg.vocab_size,
-                                  use_reentrant=False)
+            loss, wt = checkpoint(fn, xi, li, w, *extra, use_reentrant=False)
         else:
-            loss, wt = _ce_chunk(xi, li, w, cfg.vocab_size)
+            loss, wt = fn(xi, li, w, *extra)
         tot = tot + loss
         cnt = cnt + wt
     return tot / torch.clamp_min(cnt, 1.0)
@@ -711,47 +1106,94 @@ def chunked_ce_loss(x, labels, w_unembed, cfg: ModelConfig, *, mesh=None):
 
 def loss_fn(params: LanguageModel, batch, cfg: ModelConfig, *, mesh=None):
     """Mean next-token cross entropy of ``batch`` (``labels`` beside the
-    inputs) under ``params``."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
-    x, _ = forward(params, batch, cfg)
+    inputs) under ``params``; on a grid the stream leaves sequence
+    parallelism (gathered over ``"model"``) before the vocab-parallel CE."""
+    x, _, ctx = _forward(params, batch, cfg, mesh, None, None, 1)
+    if ctx is not None:
+        if ctx.seq:
+            x = all_gather_replicated(ctx.grid, x, "model", 1)
+        if "model" in ctx.batch:
+            x = all_gather_replicated(ctx.grid, x, "model", 0)
     if cfg.bf16_grad_activations:
         x = bf16_grad_barrier(x)
-    return chunked_ce_loss(x, batch["labels"], params.unembed, cfg)
+    return chunked_ce_loss(x, batch["labels"], params.unembed, cfg, mesh=mesh)
 
 
 class _Loss(nn.Module):
     """``loss_fn`` as a module over ``model``, for ``functional_call``."""
 
-    def __init__(self, model: LanguageModel, cfg: ModelConfig):
+    def __init__(self, model: LanguageModel, cfg: ModelConfig, mesh=None):
         super().__init__()
-        self.model, self.cfg = model, cfg
+        self.model, self.cfg, self.mesh = model, cfg, mesh
 
     def forward(self, batch):
-        return loss_fn(self.model, batch, self.cfg)
+        return loss_fn(self.model, batch, self.cfg, mesh=self.mesh)
+
+
+def param_specs(model: LanguageModel) -> Dict[str, tuple]:
+    """Each parameter's spec on the model's grid (``{}`` unsharded)."""
+    sh = getattr(model, "sharding", None)
+    return sh.specs if sh is not None else {}
+
+
+GRAD_BUCKET_BYTES = 1 << 28  # f32 gradient bytes reduced in one collective
+
+
+def reduce_grads(grads: Dict[str, torch.Tensor], specs: Mapping[str, tuple],
+                 grid: ProcessGrid) -> None:
+    """Sum each gradient, in place, over the data axes its parameter is
+    replicated on (the loss is the global token mean, so each rank's
+    gradient is its rows' share).  Gradients of one axis set travel
+    together in buckets of at most ``GRAD_BUCKET_BYTES``."""
+    groups: Dict[tuple, List[str]] = {}
+    for n in grads:
+        axes = tuple(a for a in dp_axes(grid)
+                     if a not in spec_axes(specs.get(n, ()))
+                     and grid.shape[a] > 1)
+        if axes:
+            groups.setdefault(axes, []).append(n)
+    for axes in sorted(groups):
+        names = groups[axes]
+        while names:
+            take, size = [], 0
+            while names and (not take or size + grads[names[0]].numel() * 4
+                             <= GRAD_BUCKET_BYTES):
+                size += grads[names[0]].numel() * 4
+                take.append(names.pop(0))
+            flat = grid.psum(torch.cat([grads[n].float().reshape(-1)
+                                        for n in take]), axes)
+            off = 0
+            for n in take:
+                k = grads[n].numel()
+                grads[n].copy_(flat[off:off + k].view_as(grads[n]))
+                off += k
 
 
 def loss_and_grads(model: LanguageModel, batch, cfg: ModelConfig, *,
-                   mixed_precision: bool = False):
+                   mixed_precision: bool = False, mesh=None):
     """``(loss, grads)``: the loss as a 0-dim f32 tensor and the gradient of
     every parameter by name (zeros where the loss does not reach it, as
     JAX's ``value_and_grad`` gives).  ``mixed_precision`` computes with
     bf16 casts of the f32 parameters, as JAX's ``make_train_step`` does;
-    the gradients are those casts' transposes, in f32."""
+    the gradients are those casts' transposes, in f32.  On a grid each
+    gradient is the rank's block of the single-device gradient."""
     params = dict(model.named_parameters())
     for p in params.values():
         p.grad = None
     if mixed_precision:
         cast = {"model." + n: (p.to(torch.bfloat16) if p.dtype == torch.float32
                                else p) for n, p in params.items()}
-        loss = torch.func.functional_call(_Loss(model, cfg), cast, (batch,))
+        loss = torch.func.functional_call(_Loss(model, cfg, mesh), cast,
+                                          (batch,))
     else:
-        loss = loss_fn(model, batch, cfg)
+        loss = loss_fn(model, batch, cfg, mesh=mesh)
     loss.backward()
     grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
              for n, p in params.items()}
     for p in params.values():
         p.grad = None
+    if mesh is not None:
+        reduce_grads(grads, param_specs(model), as_grid(mesh))
     return loss.detach(), grads
 
 
@@ -761,17 +1203,20 @@ def make_train_step(cfg: ModelConfig, optimizer, *, mesh=None,
     is ``(model, opt_state, step)``, updated in place (the step is a new
     int), and ``metrics`` holds ``loss`` and ``grad_norm`` (the f32 norm of
     the unclipped gradients) as 0-dim tensors.  ``optimizer`` is a
-    ``repro_torch.optim`` object with ``init``/``update_``."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    ``repro_torch.optim`` object with ``init``/``update_``.  On a grid the
+    state is the rank's blocks, the batch its rows, and the norm (and the
+    clipping) global."""
+    grid = None if mesh is None else as_grid(mesh)
 
     def train_step(state, batch):
         model, opt_state, step = state
         loss, grads = loss_and_grads(model, batch, cfg,
-                                     mixed_precision=mixed_precision)
-        gnorm = global_norm(grads.values())
+                                     mixed_precision=mixed_precision,
+                                     mesh=grid)
+        specs = param_specs(model)
+        gnorm = global_norm(grads, grid=grid, specs=specs)
         optimizer.update_(grads, opt_state, dict(model.named_parameters()),
-                          step)
+                          step, grid=grid, specs=specs)
         return (model, opt_state, step + 1), {"loss": loss, "grad_norm": gnorm}
 
     return train_step

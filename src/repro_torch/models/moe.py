@@ -10,8 +10,13 @@ for qwen2-moe) get −1e30 router logits and zero weights.  The combine adds
 each token's K contributions in k order in the compute dtype, a fixed
 order (no atomics).
 
-``moe_ffn_shardmap`` (expert parallelism on a mesh) waits for the model's
-grid port (ROADMAP queue 1, item 14b.3); without a mesh JAX always takes
+``moe_ffn_shardmap`` is JAX's explicit expert parallelism on a
+:class:`~repro_torch.core.grid.ProcessGrid`: each rank of the expert axis
+holds ``E/tp`` experts and routes its own token block (replicated over the
+expert axis) to them; capacity comes from that local block, assignments
+to other ranks' experts go to the drop slot, and the combine is a ``psum``
+over the expert axis.  ``moe_ffn_gspmd_grid`` keeps JAX's global dispatch
+under a grid (capacity from every token).  Without a mesh JAX always takes
 ``moe_ffn_gspmd``.
 """
 
@@ -91,8 +96,9 @@ def _dispatch_combine(x, w, r: Routing, p):
     buf = x.new_zeros((e, capacity, d))
     buf[r.expert[r.keep], r.slot[r.keep]] = x[tok[r.keep]]
     y_e = expert_ffn(buf, p.w_gate, p.w_up, p.w_down)
+    safe_e = torch.where(r.keep, r.expert, 0)
     safe_p = torch.where(r.keep, r.slot, 0)
-    y_tok = y_e[r.expert, safe_p] * (w.reshape(-1) * r.keep)[:, None].to(y_e.dtype)
+    y_tok = y_e[safe_e, safe_p] * (w.reshape(-1) * r.keep)[:, None].to(y_e.dtype)
     y_tok = y_tok.reshape(t, k, d)
     out = y_tok[:, 0]
     for j in range(1, k):
@@ -111,4 +117,65 @@ def moe_ffn_gspmd(
     """Routed experts of one MoE layer on (T, D) tokens."""
     w, r = route(x, p, n_experts_real=n_experts_real, top_k=top_k,
                  capacity_factor=capacity_factor)
+    return _dispatch_combine(x, w, r, p)
+
+
+class ExpertShard(NamedTuple):
+    """A rank's MoE weights: the whole router and its experts' weights."""
+
+    router: torch.Tensor  # (D, E)
+    w_gate: torch.Tensor  # (E/tp, D, F)
+    w_up: torch.Tensor
+    w_down: torch.Tensor  # (E/tp, F, D)
+
+
+def _local_routing(idx, w, lo: int, e_loc: int, capacity: int):
+    """``(weights, Routing)`` of (T, K) routing restricted to experts
+    ``[lo, lo + e_loc)``: others go to the drop slot ``e_loc`` with weight
+    0 and are never kept."""
+    local = (idx >= lo) & (idx < lo + e_loc)
+    idx_l = torch.where(local, idx - lo, e_loc)
+    w_l = torch.where(local, w, 0.0)
+    r = dispatch_slots(idx_l, e_loc + 1, capacity)
+    return w_l, r._replace(keep=r.keep & (r.expert < e_loc))
+
+
+def moe_ffn_shardmap(x, p, *, mesh, n_experts_real: int, top_k: int,
+                     capacity_factor: float = 1.25, token_axes=("data",),
+                     expert_axis: str = "model"):
+    """JAX's shard_map MoE on a ``ProcessGrid``, op for op: ``x`` (T, D) is
+    this rank's token block (the block of ``token_axes``, replicated over
+    ``expert_axis``), ``p`` an ``ExpertShard`` (or a module with those
+    attributes) holding this rank's ``E/tp`` experts.  Returns the block's
+    (T, D) output, summed over ``expert_axis``."""
+    from ..core.grid import psum
+
+    tp = mesh.size(expert_axis)
+    e_loc = p.w_gate.shape[0]
+    e = e_loc * tp
+    t = x.shape[0]
+    my = mesh.axis_index(expert_axis)
+    w, idx = router_topk(x, p.router, n_experts_real, top_k)
+    w_l, r = _local_routing(idx, w, my * e_loc, e_loc,
+                            moe_capacity(t, top_k, e, capacity_factor))
+    y = _dispatch_combine(x, w_l, r, p)
+    return psum(mesh, y, expert_axis)
+
+
+def moe_ffn_gspmd_grid(x, p, *, mesh, n_experts_real: int, top_k: int,
+                       capacity_factor: float = 1.25, expert_axis: str = "model"):
+    """JAX's global dispatch (``moe_ffn_gspmd``) with the experts sharded
+    over ``expert_axis``: ``x`` (T, D) holds every token (capacity comes
+    from all ``T``); returns this rank's experts' share of the output, to
+    be summed over ``expert_axis`` by the caller."""
+    tp = mesh.size(expert_axis)
+    e_loc = p.w_gate.shape[0]
+    e = e_loc * tp
+    w, idx = router_topk(x, p.router, n_experts_real, top_k)
+    r = dispatch_slots(idx, e, moe_capacity(x.shape[0], top_k, e,
+                                            capacity_factor))
+    lo = mesh.axis_index(expert_axis) * e_loc
+    local = (r.expert >= lo) & (r.expert < lo + e_loc)
+    r = r._replace(expert=torch.where(local, r.expert - lo, 0),
+                   keep=r.keep & local)
     return _dispatch_combine(x, w, r, p)

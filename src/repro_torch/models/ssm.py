@@ -10,6 +10,14 @@ operands.
 
 Shapes: d_inner = expand·d_model, H = d_inner/headdim heads, state N,
 B/C shared across heads, per-step decay a_t = exp(Δ_t·A).
+
+On a grid (``mesh=``) the SSD heads are sharded over ``"model"`` (JAX's
+constraint on ``xh``) when H divides by it: the input projection, whose
+column shard cuts across the ``[z | xBC | dt]`` concatenation, is
+gathered whole, the convolution runs on every channel (its tail stays
+whole on every rank), and each rank runs the scan, the gated norm (its
+mean of squares summed over the axis) and its rows of ``out_proj`` for its
+own heads; the partial outputs are summed over ``"model"``.
 """
 
 from __future__ import annotations
@@ -129,11 +137,19 @@ def mamba2_params_shapes(d_model: int, *, expand: int, headdim: int, state: int,
 
 
 def mamba2_forward(x, p, cfg, *, state: Optional[SSMState] = None,
-                   chunk: int = 128):
+                   chunk: int = 128, mesh=None):
     """Full Mamba-2 mixer. x (B, S, D); ``p`` has the parameters as
     attributes (``in_proj``, ``out_proj``, ``conv_w``, ``conv_b``,
     ``dt_bias``, ``a_log``, ``d_skip``, ``norm``).  Returns (y (B, S, D),
-    SSMState)."""
+    SSMState).  ``mesh`` (a ``ProcessGrid``; ``p`` then holds the rank's
+    blocks, ``shard_model``'s, and ``x`` the rank's rows, replicated over
+    ``"model"``) runs it with the SSD heads over ``"model"``."""
+    if mesh is not None:
+        from ..runtime.sharding import dp_axes
+        from .layers import GridCtx
+
+        ctx = GridCtx(mesh, batch=dp_axes(mesh), seq=None)
+        return mamba2_grid(x, p, cfg, ctx, state=state, chunk=chunk)
     bsz, s, _ = x.shape
     dims = mamba2_params_shapes(
         x.shape[-1], expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
@@ -162,4 +178,76 @@ def mamba2_forward(x, p, cfg, *, state: Optional[SSMState] = None,
     y = y.reshape(bsz, s, di)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), p.norm)
     out = dense(y, p.out_proj)
+    return out, SSMState(h=hfin, conv=new_tail)
+
+
+def ssm_mode(cfg, ctx) -> str:
+    """The region mode of a Mamba-2 mixer on ``ctx``'s grid: heads over
+    ``"model"`` when they divide by it."""
+    if "model" in ctx.batch:
+        return "dp"
+    h = mamba2_params_shapes(cfg.d_model, expand=cfg.ssm_expand,
+                             headdim=cfg.ssm_headdim, state=cfg.ssm_state,
+                             conv_width=cfg.conv_width)["n_heads"]
+    return "tp" if h % ctx.tp == 0 else "rep"
+
+
+def mamba2_grid(x, p, cfg, ctx, *, state: Optional[SSMState] = None,
+                chunk: int = 128):
+    """``mamba2_forward`` on ``ctx``'s grid (see the module docstring).
+    ``x`` is in the stream's layout (replicated over ``"model"``, or its
+    rows in ``"dp"`` mode).  ``state.h`` may hold every head or the rank's
+    heads; the returned state has the same layout, and a whole conv
+    tail."""
+    from ..core.grid import enter, psum
+    from .layers import Region
+
+    mode = ssm_mode(cfg, ctx)
+    reg = Region(ctx, mode)
+    grid = ctx.grid
+    bsz, s, d = x.shape
+    dims = mamba2_params_shapes(d, expand=cfg.ssm_expand,
+                                headdim=cfg.ssm_headdim, state=cfg.ssm_state,
+                                conv_width=cfg.conv_width)
+    di, h, n = dims["d_inner"], dims["n_heads"], cfg.ssm_state
+    hp = di // h
+    hl, lo = h // reg.tp, reg.j * (h // reg.tp)
+    xin = reg.enter(x)
+    proj = dense(xin, reg.w_full(p, "in_proj"))  # every column
+    z, xbc, dt = torch.split(proj, [di, di + 2 * n, h], dim=-1)
+    xconv, new_tail = _causal_conv(
+        xbc, reg.w_full(p, "conv_w"), reg.w_full(p, "conv_b"),
+        None if state is None else state.conv)
+    xh = xconv[..., :di].reshape(bsz, s, h, hp)[:, :, lo:lo + hl]
+    bmat = xconv[..., di: di + n]
+    cmat = xconv[..., di + n:]
+    dt = softplus(dt.float() + reg.w_full(p, "dt_bias"))[..., lo:lo + hl]
+    a_log = reg.w_full(p, "a_log")[lo:lo + hl]
+    h_state = None
+    if state is not None:
+        h_state = state.h if state.h.shape[1] == hl else state.h[:, lo:lo + hl]
+    if s == 1 and state is not None:
+        hfin, y1 = ssd_decode_step(h_state, xh[:, 0], dt[:, 0], a_log,
+                                   bmat[:, 0], cmat[:, 0])
+        y = y1[:, None]
+    else:
+        y, hfin = ssd_chunked(xh, dt, a_log, bmat, cmat, chunk=chunk,
+                              compute_bf16=getattr(cfg, "ssd_bf16", False))
+    d_skip = reg.w_full(p, "d_skip")[lo:lo + hl]
+    y = y + xh * d_skip.to(y.dtype)[None, None, :, None]
+    y = y.reshape(bsz, s, hl * hp)
+    cols = slice(lo * hp, (lo + hl) * hp)
+    gated = y * F.silu(z[..., cols].float()).to(y.dtype)
+    norm = reg.w_full(p, "norm")[cols]
+    if reg.tp == 1:
+        y = rms_norm(gated, norm)
+    else:  # the mean of squares over every head: summed over "model"
+        gf = gated.float()
+        ss = enter(grid, psum(grid, torch.sum(gf * gf, dim=-1, keepdim=True),
+                              "model"), "model")
+        y = ((gf * torch.rsqrt(ss / di + 1e-6)) * (1.0 + norm.float())
+             ).to(gated.dtype)
+    out = reg.leave(dense(y, reg.w_full(p, "out_proj")[cols]))
+    if state is not None and state.h.shape[1] != hfin.shape[1]:
+        hfin = grid.all_gather(hfin.contiguous(), "model", dim=1)
     return out, SSMState(h=hfin, conv=new_tail)

@@ -30,9 +30,28 @@ def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """f32 L2 norm over every tensor (JAX's ``sqrt(Σ Σ g²)``)."""
-    return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in tensors))
+def global_norm(tensors, *, grid=None, specs=None) -> torch.Tensor:
+    """f32 L2 norm over every tensor (JAX's ``sqrt(Σ Σ g²)``).  On a grid
+    ``tensors`` maps parameter names to the rank's blocks and ``specs``
+    gives each one's spec: a leaf's squared sum is summed over the axes it
+    is sharded on, so a replicated leaf counts once, and every rank gets
+    the global norm."""
+    if grid is None:
+        if isinstance(tensors, Mapping):
+            tensors = tensors.values()
+        return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in tensors))
+    groups: Dict[tuple, torch.Tensor] = {}
+    for name, g in tensors.items():
+        axes = tuple(a for e in (specs or {}).get(name, ())
+                     for a in ((e,) if isinstance(e, str) else (e or ()))
+                     if grid.shape[a] > 1)
+        sq = torch.sum(g.float() * g.float())
+        groups[axes] = groups[axes] + sq if axes in groups else sq
+    total = None
+    for axes in sorted(groups):
+        part = grid.psum(groups[axes], axes) if axes else groups[axes]
+        total = part if total is None else total + part
+    return torch.sqrt(total)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,13 +79,15 @@ class AdamW:
 
     @torch.no_grad()
     def update_(self, grads: Mapping[str, torch.Tensor], state: OptState,
-                params: Mapping[str, torch.Tensor], step: int) -> None:
+                params: Mapping[str, torch.Tensor], step: int, *,
+                grid=None, specs=None) -> None:
         """Apply one step to ``params`` and ``state`` in place.  ``grads``
         (by parameter name) are consumed: f32 gradients are scaled in
-        place."""
+        place.  On a grid (the rank's blocks, placed by ``specs``) the
+        clipping norm is the global one, so every rank scales alike."""
         g32 = {n: g.float() for n, g in grads.items()}
         if self.clip_norm is not None:
-            gn = global_norm(g32.values())
+            gn = global_norm(g32, grid=grid, specs=specs)
             scale = torch.clamp_max(
                 self.clip_norm / torch.clamp_min(gn, 1e-12), 1.0)
             for g in g32.values():

@@ -1,8 +1,8 @@
-"""Runtime services of the port: gradient compression with error feedback
-(``compression``) and straggler detection (``straggler``), as in
-``repro.runtime``.  Parameter placement on a device mesh (JAX's
-``runtime/sharding.py``, ``runtime/elastic.py``) waits for the model's
-mesh paths (ROADMAP queue 1, item 14b.3)."""
+"""Runtime services of the port, as in ``repro.runtime``: gradient
+compression with error feedback (``compression``), straggler detection
+(``straggler``), parameter, batch and cache placement on a process grid
+(``sharding``) and resharding a training state onto another grid
+(``elastic``)."""
 
 from .compression import (  # noqa: F401
     CompressedAllReduce,
@@ -12,3 +12,14 @@ from .compression import (  # noqa: F401
     int8_decompress,
 )
 from .straggler import StragglerMonitor  # noqa: F401
+from .elastic import reshard_state  # noqa: F401
+from .sharding import (  # noqa: F401
+    apply_sharding_rules,
+    batch_sharding,
+    cache_sharding,
+    gather_tensor,
+    param_sharding_rules,
+    shard_model,
+    shard_tensor,
+    spec_for,
+)

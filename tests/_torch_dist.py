@@ -412,3 +412,206 @@ def job_compressed_reduce(inputs):
         out[mode] = {k: v.float().numpy() for k, v in red.items()}
         out[mode + "_bytes"] = grid.reset_collective_bytes()["all_reduce"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# language-model mesh paths
+# ---------------------------------------------------------------------------
+
+
+def _lm_rows(x, grid, n_rows):
+    """This rank's data-parallel rows of a global array (numpy)."""
+    from repro_torch.runtime.sharding import dp_axes
+
+    i = grid.axis_index(dp_axes(grid))
+    return x[i * n_rows:(i + 1) * n_rows]
+
+
+def job_lm_mesh(inputs):
+    """Every case of ``inputs["cases"]`` on the grid ``inputs["grid"]``
+    (``(shape, axes)``): the loss and every gradient (gathered to logical
+    tensors, FSDP on) of the rank's rows, the residual's shape entering
+    each block, and for each ``sharded_cache_update`` the rows' logits of
+    prefill and the teacher-forced decode steps (``seq_shards`` = the
+    model axis, caches sequence-sharded)."""
+    import dataclasses
+
+    from repro_torch.convert import lm_config_from_dict, lm_params_from_numpy
+    from repro_torch.core.grid import ProcessGrid
+    from repro_torch.models import model as M
+    from repro_torch.runtime.sharding import dp_axes, gather_tensor
+
+    grid = ProcessGrid.of_shape(*inputs["grid"])
+    n_dp = grid.size(dp_axes(grid))
+    tp = grid.shape["model"]
+    out = {}
+    for case in inputs["cases"]:
+        cfg = lm_config_from_dict(case["cfg"])
+        rows = case["batch"]["labels"].shape[0] // n_dp
+        res = {}
+        model = lm_params_from_numpy(case["params"], cfg, train=True,
+                                     mesh=grid, fsdp=True)
+        shapes = []
+        hooks = [blk.register_forward_pre_hook(
+            lambda m, a: shapes.append(tuple(a[0].shape)))
+            for s in model.slots for blk in s]
+        batch = {k: torch.from_numpy(_lm_rows(v, grid, rows))
+                 for k, v in case["batch"].items()}
+        loss, grads = M.loss_and_grads(model, batch, cfg, mesh=grid)
+        for h in hooks:
+            h.remove()
+        specs = model.sharding.specs
+        res["loss"] = float(loss)
+        res["grads"] = {n: _np(gather_tensor(g, specs[n], grid))
+                        for n, g in grads.items()}
+        res["block_input_shapes"] = sorted(set(shapes))
+        serve = lm_params_from_numpy(case["params"], cfg, mesh=grid)
+        prompt = {k: torch.from_numpy(_lm_rows(v, grid, rows))
+                  for k, v in case["prompt"].items()}
+        for scu in (False, True):
+            c = dataclasses.replace(cfg, sharded_cache_update=scu)
+            caches = M.init_cache(c, rows * n_dp, case["max_len"], mesh=grid,
+                                  seq_sharded=True)
+            logits = [M.make_prefill_step(c, mesh=grid)(serve, caches,
+                                                        prompt)[0]]
+            step = M.make_serve_step(c, mesh=grid, seq_shards=tp)
+            for i, d in enumerate(case["decode"]):
+                inp = {k: torch.from_numpy(_lm_rows(v, grid, rows))
+                       for k, v in d.items()}
+                logits.append(step(serve, caches, inp, case["pos0"] + i)[0])
+            res[f"logits_scu{scu}"] = [_np(t) for t in logits]
+        res["rows"] = (grid.axis_index(dp_axes(grid)) * rows, rows)
+        out[case["name"]] = res
+    return out
+
+
+def job_lm_shardmap(inputs):
+    """The shard_map bodies on a 2×2 grid, each rank on its blocks of the
+    global numpy inputs: split-KV decode (window off and on), the
+    owner-writes cache update, the expert-parallel MoE and the
+    vocab-parallel cross entropy with its gradients."""
+    from repro_torch.convert import lm_config_from_dict
+    from repro_torch.core.grid import ProcessGrid
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import ExpertShard, moe_ffn_shardmap
+    from repro_torch.runtime.sharding import gather_tensor, shard_tensor
+
+    grid = ProcessGrid(2, 2)
+    t = {k: torch.from_numpy(v) for k, v in inputs["arrays"].items()}
+    out = {}
+    kv = ("data", "model")  # the caches' (batch, sequence) blocks
+    kc = shard_tensor(t["kc"], kv, grid)
+    vc = shard_tensor(t["vc"], kv, grid)
+    q = shard_tensor(t["q"], ("data",), grid)
+    cur = shard_tensor(t["cur"], ("data",), grid)
+    for w in (None, inputs["window"]):
+        o = A.decode_attention_sharded(q, kc, vc, cur, mesh=grid, window=w)
+        out[f"decode_{w}"] = _np(gather_tensor(o, ("data",), grid))
+    kn = shard_tensor(t["kn"], ("data",), grid)
+    vn = shard_tensor(t["vn"], ("data",), grid)
+    for pos in inputs["positions"]:
+        k2, v2 = A.cache_update_sharded(kc.clone(), vc.clone(), kn, vn, pos,
+                                        mesh=grid)
+        out[f"update_{pos}"] = (_np(gather_tensor(k2, kv, grid)),
+                                _np(gather_tensor(v2, kv, grid)))
+    p = ExpertShard(t["router"], *(shard_tensor(t[n], ("model",), grid)
+                                   for n in ("w_gate", "w_up", "w_down")))
+    y = moe_ffn_shardmap(shard_tensor(t["x_moe"], ("data",), grid), p,
+                         mesh=grid, n_experts_real=inputs["n_real"],
+                         top_k=inputs["top_k"], token_axes=("data",))
+    out["moe"] = _np(gather_tensor(y, ("data",), grid))
+    cfg = lm_config_from_dict(inputs["cfg"])
+    x = shard_tensor(t["x_ce"], ("data",), grid).requires_grad_(True)
+    w = shard_tensor(t["w_ce"], ("model", None), grid).requires_grad_(True)
+    labels = shard_tensor(t["labels"], ("data",), grid)
+    loss = M.chunked_ce_loss(x, labels, w, cfg, mesh=grid)
+    loss.backward()
+    # w is replicated over "data": each rank's gradient is its rows' share,
+    # summed over the data axes as the train step's reduce_grads sums it
+    gw = grid.psum(w.grad, "data")
+    out["ce"] = (float(loss), _np(gather_tensor(x.grad, ("data",), grid)),
+                 _np(gather_tensor(gw, ("model", None), grid)))
+    return out
+
+
+def job_lm_train_resume(inputs):
+    """Three ``build_train_step(mesh=)`` steps on 2×2 beside the
+    single-device steps on the same global batches; then ``reshard_state``
+    onto 4×1 (logical leaves before and after), a checkpoint of the 2×2
+    state restored onto 4×1 and trained to the end."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.grid import ProcessGrid
+    from repro_torch.data import SyntheticLMData, as_tensors
+    from repro_torch.launch import train as T
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.runtime import CompressedAllReduce, reshard_state
+    from repro_torch.runtime.sharding import gather_model, gather_tensor
+
+    import dataclasses
+
+    cfg = dataclasses.replace(reduced_config(inputs["arch"]),
+                              dtype=inputs["dtype"])
+    opt = AdamW(learning_rate=cosine_schedule(3e-3, 2, inputs["steps"]))
+    comp = CompressedAllReduce(mode="none")
+    g22 = ProcessGrid(2, 2)
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, batch_size=4,
+                           seq_len=inputs["seq"], seed=0)
+
+    def whole(step):  # the global batch: the shards, in order
+        parts = [data.batch_at(step, shard=i, n_shards=2) for i in range(2)]
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+    def gen():
+        return torch.Generator().manual_seed(0)
+
+    ref = T.make_state(cfg, opt, gen())
+    ref_step = T.build_train_step(cfg, opt, comp)
+    state = T.make_state(cfg, opt, gen(), mesh=g22, fsdp=True)
+    step_fn = T.build_train_step(cfg, opt, comp, mesh=g22)
+    out = {"ref": [], "grid": []}
+    for s in range(3):
+        ref, _, m0 = ref_step(ref, as_tensors(whole(s), "cpu"), None)
+        state, _, m1 = step_fn(state, as_tensors(T.rank_batch(data, s, g22),
+                                                 "cpu"), None)
+        out["ref"].append((float(m0["loss"]), float(m0["grad_norm"])))
+        out["grid"].append((float(m1["loss"]), float(m1["grad_norm"])))
+    ref_params = {n: p.detach().clone() for n, p in ref[0].named_parameters()}
+    before = gather_model(state[0])
+    out["param_err"] = max(float((before[n] - ref_params[n]).abs().max())
+                           for n in ref_params)
+
+    mgr = CheckpointManager(inputs["ckpt"], async_write=False)
+    mgr.save(3, state)
+    dist.barrier()
+    g41 = ProcessGrid.of_shape((4, 1))
+    old = dict(state[0].sharding.specs)
+    moments = {(k, n): gather_tensor(m, old[n], g22)
+               for k in ("mu", "nu") for n, m in getattr(state[1], k).items()}
+    moved = reshard_state(state, g41, fsdp=True)
+    after = gather_model(moved[0])
+    specs = moved[0].sharding.specs
+    out["reshard_equal"] = all(torch.equal(before[n], after[n]) for n in before)
+    out["reshard_moments_equal"] = all(
+        torch.equal(gather_tensor(getattr(moved[1], k)[n], specs[n], g41), m)
+        for (k, n), m in moments.items())
+    out["reshard_step"] = moved[2]
+    out["local_shapes"] = {n: tuple(p.shape)
+                           for n, p in moved[0].named_parameters()}
+
+    # resume the checkpoint on 4x1 and run to the end, beside the straight run
+    fresh = T.make_state(cfg, opt, torch.Generator().manual_seed(1), mesh=g41)
+    restored = mgr.restore(3, fresh)
+    restored = (restored[0], restored[1], int(restored[2]))
+    step41 = T.build_train_step(cfg, opt, comp, mesh=g41)
+    for s in range(3, inputs["steps"]):
+        # the same global batch in 4 row blocks of 1
+        b = whole(s)
+        i = g41.axis_index(("data",))
+        restored, _, m = step41(restored, as_tensors(
+            {k: v[i:i + 1] for k, v in b.items()}, "cpu"), None)
+        ref, _, m0 = ref_step(ref, as_tensors(b, "cpu"), None)
+    out["resumed_final"] = float(m["loss"])
+    out["straight_final"] = float(m0["loss"])
+    return out

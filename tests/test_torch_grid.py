@@ -98,6 +98,7 @@ def test_pod_grid_axes_accepted():
     assert torch.equal(g.ppermute(x, ("pod", "data"), [(0, 0)]), x)
     assert torch.equal(g.all_gather(x, ("pod", "data", "model")), x)
     assert g.collective_bytes == {"all_gather": 0, "all_reduce": 0,
+                                  "reduce_scatter": 0,
                                   "permute": 0}  # size 1: nothing issued
     assert ProcessGrid.of_shape((1, 1, 1), POD_AXES).shape == g.shape
     assert resolve_row_axes(g, None) == ("pod", "data")

@@ -60,9 +60,10 @@ def test_dibella_config_equals_jax(which):
             64, 8, 16, 8)
 
 
-def test_lm_archs_are_not_ported():
-    """The LM configs are ported (serving, ROADMAP item 14a); their dry run
-    is not (item 14b) and still raises."""
+def test_lm_archs_are_not_ported(tmp_path):
+    """The LM configs are ported field for field, and their dry run returns
+    a record (the LM branch of JAX's ``lower_cell``; its parts are held to
+    JAX in ``tests/test_torch_sharding.py``)."""
     for get, jget in ((get_config, j_get_config),
                       (reduced_config, j_reduced_config)):
         port, ref = get("qwen3-4b"), jget("qwen3-4b")
@@ -70,8 +71,11 @@ def test_lm_archs_are_not_ported():
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     with pytest.raises(KeyError):
         get_config("nope")
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        dryrun.main(["--arch", "yi-9b", "--device", "cpu"])
+    rec = dryrun.main(["--arch", "yi-9b", "--shape", "decode_32k", "--reduced",
+                       "--device", "cpu", "--batch", "1",
+                       "--out", str(tmp_path / "yi.json")])
+    assert rec["arch"] == "yi-9b" and rec["production"]["chips"] == 256
+    assert rec["measured"]["finite"]
 
 
 # --- roofline on the H100's peaks ---------------------------------------------
@@ -363,7 +367,7 @@ def test_dryrun_reduced_on_the_cpu(tmp_path):
         assert st["ms"] > 0 and st["memory"]["argument"] > 0
         assert st["collective_bytes_per_device"] == 0  # 1x1: none issued
         assert st["collective_by_op"] == {"all_gather": 0, "all_reduce": 0,
-                                          "permute": 0}
+                                          "reduce_scatter": 0, "permute": 0}
     assert rec["stages"]["tr"]["tr_iterations"] >= 1
     prod = rec["production"]
     assert prod["grid"] == [2, 16, 16] and prod["row_axes"] == ["pod", "data"]

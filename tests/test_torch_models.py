@@ -454,13 +454,20 @@ def test_ssd_bf16_is_honoured_like_jax():
 
 
 def test_mesh_raises_naming_the_roadmap():
+    """A mesh that is not a ``ProcessGrid`` raises, naming the class that
+    is the port's counterpart of a JAX mesh (the mesh paths themselves are
+    held to JAX in ``tests/test_torch_mesh_models.py``)."""
     cfg = TC.reduced_config("qwen3-4b")
     model = TM.init_params(cfg, torch.Generator().manual_seed(0))
-    for call in (lambda: TM.forward(model, {"tokens": torch.ones(1, 2, dtype=torch.int32)},
-                                    cfg, mesh=object()),
-                 lambda: TM.make_serve_step(cfg, mesh=object()),
-                 lambda: TM.make_prefill_step(cfg, mesh=object())):
-        with pytest.raises(NotImplementedError, match="item 14b"):
+    caches = TM.init_cache(cfg, 1, 4)
+    batch = {"tokens": torch.ones(1, 2, dtype=torch.int32)}
+    for call in (lambda: TM.forward(model, batch, cfg, mesh=object()),
+                 lambda: TM.make_serve_step(cfg, mesh=object())(
+                     model, caches, batch, 0),
+                 lambda: TM.make_prefill_step(cfg, mesh=object())(
+                     model, caches, batch),
+                 lambda: TM.init_cache(cfg, 1, 4, mesh=object())):
+        with pytest.raises(TypeError, match="ProcessGrid"):
             call()
 
 

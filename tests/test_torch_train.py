@@ -166,8 +166,29 @@ def test_chunked_ce_loss_matches_jax(dtype):
 
 
 def test_chunked_ce_loss_vocab_parallel_raises():
+    """The vocab-parallel branch on a 1×1 grid equals the plain CE (loss
+    and both gradients); a mesh that is not a ``ProcessGrid`` raises.  On
+    more ranks it is held to JAX's shard_map in
+    ``tests/test_torch_mesh_models.py``."""
+    from repro_torch.core.grid import ProcessGrid
+
     _, tcfg = _cfgs("qwen3-4b")
-    with pytest.raises(NotImplementedError, match="item 14b.3"):
+    rng = np.random.default_rng(5)
+    x = rng.normal(0, 1, (B, S, tcfg.d_model)).astype(np.float32)
+    w = rng.normal(0, 0.1, (tcfg.d_model, tcfg.vocab_padded)).astype(np.float32)
+    labels = _batch(tcfg)["labels"]
+    res = []
+    for mesh in (None, ProcessGrid(1, 1)):
+        tx = torch.from_numpy(x).requires_grad_(True)
+        tw = torch.from_numpy(w).requires_grad_(True)
+        loss = TM.chunked_ce_loss(tx, torch.from_numpy(labels), tw, tcfg,
+                                  mesh=mesh)
+        loss.backward()
+        res.append((float(loss.detach()), tx.grad.numpy(), tw.grad.numpy()))
+    np.testing.assert_allclose(res[1][0], res[0][0], rtol=F32_LOSS)
+    _leaf_close(res[1][1], res[0][1], F32_LEAF, "x")
+    _leaf_close(res[1][2], res[0][2], F32_LEAF, "w_unembed")
+    with pytest.raises(TypeError, match="ProcessGrid"):
         TM.chunked_ce_loss(torch.zeros(1, 2, tcfg.d_model),
                            torch.zeros(1, 2, dtype=torch.int32),
                            torch.zeros(tcfg.d_model, tcfg.vocab_padded), tcfg,
