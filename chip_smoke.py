@@ -138,7 +138,17 @@ exit, no result line) on any check that does not hold:
              normalised update: see PARAM_TOL).  8c: every arch's ``reduced()`` in f32, 3 steps,
              the same bounds; then ``launch.train.main`` on the card (bf16):
              8 steps straight against 5 steps, a checkpoint and ``--resume``
-             to 8, final loss within rtol 1e-4.
+             to 8, final loss within rtol 1e-4.  8d: the SSM archs at full
+             width and depth, mamba2-1.3b (48 layers, d_model 2048, state
+             128) and hymba-1.5b (32 layers, d_model 1600, 25/5 heads,
+             window 1024, 3 global layers), each trained as 8a on 1 × 4096
+             tokens from seed 0: a warm-up step on batch 0 (lr 0), then two
+             timed steps on batch 1; losses and grad norms finite, the first
+             loss within 0.5 of ln(vocab), the second timed step's loss
+             below the first's (the step learned its batch); step ms
+             (median), tokens/s, the allocator's peak beside ``train_plan``
+             and the losses and grad norms in hex (``scripts/
+             train_trees.py`` holds them bit for bit against another tree);
 9. mesh    — the language models' mesh paths (``mesh=`` a 1×1
              ``ProcessGrid`` over a 1-rank NCCL group; torch ops and the
              grid's collectives, no hand kernel: JAX's mesh paths reach no
@@ -161,7 +171,14 @@ exit, no result line) on any check that does not hold:
              ``decode_32k`` (``launch/dryrun.py``) at the production
              grid's rows per rank (128 / 16 = 8, cache 32,768): its record
              (production argument bytes and roofline, the measured decode
-             step) in one line, also written to ``build/chip_smoke/``.
+             step) in one line, also written to ``build/chip_smoke/``.  9d:
+             the dry run's measured ``prefill_32k`` step of qwen3-4b at the
+             production grid's 2 rows a rank, the prompt cut to 16,384 tokens
+             (the whole 32,768, three calls of ~60 s on an H100, runs in
+             ``scripts/serve_profile.py --long-prefill``): ms and peak beside its bf16
+             FLOP bound, then causality: the logits of each row's first 512
+             positions (7a's prompt length) against a 512-token prefill of
+             the same tokens, finite and within rtol = atol = 0.15.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -891,6 +908,93 @@ def train_phase(args, check, device: str = "cuda") -> None:
     return ref
 
 
+# 8d: the SSM archs at full width and depth, (layers, d_model, state) as
+# published; a warm-up step on batch 0 (lr 0), then two timed steps on
+# batch 1, so that the second must lower the first's loss on its own batch
+SSM_TRAIN = {"mamba2-1.3b": (48, 2048, 128), "hymba-1.5b": (32, 1600, 16)}
+SSM_FIRST_LOSS = 0.5  # at full width, the first loss within this of ln V
+
+
+def ssm_train_phase(args, check, device: str = "cuda") -> None:
+    """Phase 8d: mamba2-1.3b and hymba-1.5b trained at full width and depth
+    on 1 × 4096 tokens, bf16 compute on f32 master parameters and moments,
+    as 8a trains qwen3-4b.  Only ``"cuda"`` is a measurement; another
+    device rehearses the control flow (with ``configs.get_config``
+    patched)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs as TC
+    from repro_torch.data import SyntheticLMData, as_tensors
+    from repro_torch.launch import train as TT
+    from repro_torch.models import model as TM
+    from repro_torch.models.layers import param_count
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    for arch, widths in SSM_TRAIN.items():
+        cfg = TC.get_config(arch)
+        if cuda:
+            check((cfg.n_layers, cfg.d_model, cfg.ssm_state) == widths,
+                  f"8d: {arch} is not at its published widths")
+        opt = AdamW(learning_rate=cosine_schedule(3e-3, 1, 3))
+        state = TT.make_state(cfg, opt, torch.Generator(device=dev)
+                              .manual_seed(args.seed))
+        n_stored = param_count(state[0])
+        seq = TRAIN_SEQ
+        plan = train_plan(cfg, n_stored, seq)
+        step_fn = TM.make_train_step(cfg, opt)
+        data = SyntheticLMData(vocab_size=cfg.vocab_size, batch_size=1,
+                               seq_len=seq, seed=0)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        losses, gnorms, times = [], [], []
+        for step, b in enumerate((0, 1, 1)):
+            batch = as_tensors(data.batch_at(b), dev)
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            if cuda:
+                torch.cuda.synchronize()
+            if step:
+                times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        step_ms = float(np.median(times))
+        # 6·N·T at the bf16 peak and the optimizer's 28 B a parameter (the
+        # SSD scan's and the attention's products left out)
+        bound = (6 * cfg.param_count() * seq / BF16_TFLOPS
+                 + 28 * n_stored / HBM_BYTES_S) * 1e3
+        rec = {"arch": cfg.name, "batch": 1, "seq": seq,
+               "param_count": cfg.param_count(), "stored_params": n_stored,
+               "step_ms": times, "step_ms_median": step_ms,
+               "tokens_per_s": seq / step_ms * 1e3, "bound_ms": bound,
+               "x_bound": step_ms / bound, "losses": losses,
+               "grad_norms": gnorms,
+               "losses_hex": [x.hex() for x in losses],
+               "grad_norms_hex": [x.hex() for x in gnorms],
+               "peak_bytes": peak, "plan": plan,
+               "reckoned_peak_bytes": plan["reckoned_peak"]}
+        print(f"[train] 8d {json.dumps(rec)}", flush=True)
+        check(all(math.isfinite(x) for x in losses + gnorms),
+              f"8d {arch}: non-finite loss or grad norm: {losses}, {gnorms}")
+        check(not cuda or abs(losses[0] - math.log(cfg.vocab_size))
+              <= SSM_FIRST_LOSS, f"8d {arch}: first loss {losses[0]} not "
+              f"within {SSM_FIRST_LOSS} of ln({cfg.vocab_size})")
+        check(losses[2] < losses[1], f"8d {arch}: the step did not lower "
+              f"its batch's loss: {losses[1]} -> {losses[2]}")
+        del state, step_fn, m, batch
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+
 def _check_card_cpu(what, runs, err, check):
     for (lc, gc_), (ld, gd) in zip(runs["cpu"], runs["card"]):
         check(abs(ld - lc) <= TRAIN_LOSS_RTOL * abs(lc)
@@ -905,13 +1009,20 @@ def _check_card_cpu(what, runs, err, check):
 MESH_CHECK = dict(batch=4, seq=256, train_seq=256)  # 9b
 MESH_TRAIN_STEPS = 2  # 9a
 DRYRUN_ARGV = ["--arch", "qwen3-4b", "--shape", "decode_32k", "--batch", "8"]
+# 9d: the production grid's rows a rank (32 / 16 = 2); the prompt cut from
+# 32,768 to the longest that keeps the phase near a minute (the whole
+# 32,768: `scripts/serve_profile.py --long-prefill`, three ~60 s calls)
+PREFILL_ARGV = ["--arch", "qwen3-4b", "--shape", "prefill_32k"]
+PREFILL_SEQ = 16384
+PREFIX = 512  # 7a's prompt length
 
 
 def mesh_phase(args, check, serve_ref, train_ref, device: str = "cuda"):
     """Phase 9: the language models' mesh paths (``mesh=`` a 1×1
     ``ProcessGrid`` over a 1-rank process group): qwen3-4b served and
     trained at full size (9a), the other nine archs at full width (9b), and
-    the LM dry run of qwen3-4b ``decode_32k`` (9c).  Only ``"cuda"`` is a
+    the LM dry runs of qwen3-4b ``decode_32k`` (9c) and ``prefill_32k``
+    (9d).  Only ``"cuda"`` is a
     measurement; another device rehearses the control flow (with
     ``configs.get_config`` patched and a gloo group)."""
     import numpy as np
@@ -919,7 +1030,7 @@ def mesh_phase(args, check, serve_ref, train_ref, device: str = "cuda"):
     import torch.distributed as dist
 
     from repro_torch import configs as TC
-    from repro_torch.core.grid import ProcessGrid
+    from repro_torch.core.grid import ProcessGrid, release_grids
     from repro_torch.data import SyntheticLMData, as_tensors
     from repro_torch.launch import dryrun as DR
     from repro_torch.launch import serve as SV
@@ -1097,9 +1208,70 @@ def mesh_phase(args, check, serve_ref, train_ref, device: str = "cuda"):
                   "9c: the dry run's decode step is not finite")
             print(f"[mesh] 9c {json.dumps(rec)} in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+            long_prefill_phase(args, check, grid, dev, seq=PREFILL_SEQ)
     finally:
         if own:
             dist.destroy_process_group()
+            release_grids()
+
+
+def long_prefill_phase(args, check, grid, dev, seq=None) -> dict:
+    """Phase 9d: the LM dry run's measured ``prefill_32k`` step of qwen3-4b
+    at the production grid's rows a rank (``launch/dryrun.py``, as 9c),
+    with its prompt cut to ``seq`` tokens if given, its time and peak
+    beside its bf16 FLOP bound, then causality: the logits of each row's
+    first ``PREFIX`` positions in the long prefill against a
+    ``PREFIX``-token prefill of the same tokens, within phase 7's prefill
+    tolerance, and all finite.  Returns the dry run's record."""
+    import torch
+
+    from repro_torch import configs as TC
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import model as TM
+    from repro_torch.runtime.sharding import shard_model
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rec = DR.main(PREFILL_ARGV + ["--device", dev.type, "--out", os.path.join(
+            "build", "chip_smoke", "dryrun_qwen3-4b_prefill_32k.json")]
+            + (["--seq", str(seq)] if seq else []))
+    meas = rec["measured"]
+    flops = meas["roofline"]["flops_per_device"]
+    meas["flop_bound_ms"] = flops / BF16_TFLOPS * 1e3
+    check(meas["finite"] and meas["ms"] > 0,
+          "9d: the dry run's prefill step is not finite")
+    # causality: the first PREFIX positions of each row equal a
+    # PREFIX-token prefill of the row's first tokens
+    cfg = TC.get_config("qwen3-4b")
+    rows = meas["rows_per_rank"]
+    seq = seq or DR.SHAPES["prefill_32k"].seq_len
+    params = shard_model(TM.init_params(cfg, torch.Generator(
+        device=dev).manual_seed(args.seed)), grid, fsdp=False)
+    toks = SV.make_prompt(cfg, rows, seq, args.seed, dev)["tokens"]
+    heads = []
+    for s in (seq, PREFIX):
+        caches = TM.init_cache(cfg, rows, s, device=dev, mesh=grid,
+                               seq_sharded=True)
+        x, _ = TM.forward(params, {"tokens": toks[:, :s]}, cfg,
+                          mesh=grid, caches=caches, pos=0)
+        heads.append(TM.unembed_logits(x[:, :PREFIX],
+                                       params.unembed).cpu())
+        del x, caches
+    long, short = heads
+    err = float((long - short).abs().max())
+    del params, toks, heads
+    print(f"[mesh] 9d {json.dumps(rec)}; logits of positions "
+          f"0-{PREFIX - 1} against a {PREFIX}-token prefill: max "
+          f"|diff| {err:.4e}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check(bool(torch.isfinite(long).all()) and bool(
+        (long - short).abs().le(0.15 + 0.15 * short.abs()).all()),
+        f"9d: the {seq}-token prefill's first {PREFIX} positions are "
+        f"off a {PREFIX}-token prefill's (max |diff| {err})")
+    rec["prefix_logits_max_abs_diff"] = err
+    return rec
 
 
 def main() -> None:
@@ -1123,6 +1295,16 @@ def main() -> None:
           "the training path launched a hand kernel")
     print(f"[train] phase 8 in {time.perf_counter() - t0:.1f} s (no hand "
           "kernel: JAX's training path reaches no pallas_call)", flush=True)
+
+    # --- 8d. the SSM archs trained at full size ---
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    ssm_train_phase(args, check)
+    check(sum(K.launch_counts().values()) == 0,
+          "the SSM training path launched a hand kernel")
+    print(f"[train] phase 8d in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # --- 9. the mesh paths on a 1x1 grid ---
     gc.collect()

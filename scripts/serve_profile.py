@@ -16,8 +16,15 @@ Builds the model of ``--arch`` at full size from ``--seed`` (as ``python
   call), kernels launched per call, and the kernels and torch ops that
   take most of it.
 
+``--long-prefill`` instead runs ``chip_smoke.py``'s phase 9d with the
+whole prompt: the LM dry run's measured ``prefill_32k`` step of qwen3-4b
+(2 rows of 32,768 tokens, the production grid's rows a rank, on a 1×1
+grid over a 1-rank NCCL group), its time, peak and bf16 FLOP bound, and
+the causality check of the first 512 positions against a 512-token
+prefill (``chip_smoke.py`` runs the same path at 16,384 tokens).
+
 Prints the card's name and power limit, then one JSON line.  Exits
-non-zero without a card.
+non-zero without a card, or when a check fails.
 """
 
 from __future__ import annotations
@@ -42,7 +49,30 @@ def parse_args():
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--long-prefill", action="store_true",
+                    help="phase 9d of chip_smoke.py at the whole 32,768 "
+                         "tokens instead of the profile")
     return ap.parse_args()
+
+
+def long_prefill(args) -> None:
+    """``chip_smoke.long_prefill_phase`` at the whole ``prefill_32k``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as CS
+    from repro_torch.core.grid import ProcessGrid, release_grids
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        rec = CS.long_prefill_phase(args, CS.check, ProcessGrid(1, 1),
+                                    torch.device("cuda"))
+    finally:
+        dist.destroy_process_group()
+        release_grids()
+    print(json.dumps({"long_prefill": rec}))
 
 
 def main() -> None:
@@ -60,6 +90,8 @@ def main() -> None:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip())
+    if args.long_prefill:
+        return long_prefill(args)
     torch.backends.cuda.matmul.allow_tf32 = False
     sargs = SV.parse_args(["--arch", args.arch, "--batch", str(args.batch),
                            "--prompt-len", str(args.prompt_len),

@@ -22,10 +22,11 @@ the tree they are loaded into.
 A state sharded on a grid (a model from ``runtime.sharding.shard_model``
 or ``launch.train.make_state(mesh=)``, with its moments) is written as its
 *logical* arrays, as JAX's checkpoints are: every rank gathers each leaf
-(a collective) and rank 0 writes.  Loading into a sharded ``like`` keeps
-each rank's block of the logical arrays by the like's own specs (or by
-``shardings=``, a ``runtime.sharding.ModelSharding``), so a checkpoint of
-one grid restores onto another: JAX's elastic restore.
+(a collective) and rank 0 alone copies it to host memory and writes.
+Loading into a sharded ``like`` keeps each rank's block of the logical
+arrays by the like's own specs (or by ``shardings=``, a
+``runtime.sharding.ModelSharding``), so a checkpoint of one grid restores
+onto another: JAX's elastic restore.
 """
 
 from __future__ import annotations
@@ -85,17 +86,21 @@ def _spec(key: str, shardings) -> tuple:
 def to_host(tree: Any, shardings=None
             ) -> Dict[str, np.ndarray]:
     """Every leaf of ``tree`` copied to host memory, by key; sharded
-    leaves are gathered to their logical arrays first (a collective)."""
+    leaves are gathered to their logical arrays first (a collective, which
+    every rank joins; only the writer keeps the copies, so a grid's other
+    ranks return an empty dict instead of holding the whole state too)."""
     from ..runtime.sharding import gather_tensor
 
     flat: Dict[str, Any] = {}
     _flatten(tree, "", flat)
+    keep = _writer(shardings)
     out = {}
     for k, v in flat.items():
         spec = _spec(k, shardings)
         if spec and isinstance(v, torch.Tensor):
             v = gather_tensor(v.detach(), spec, shardings.grid)
-        out[k] = _host(v)
+        if keep:
+            out[k] = _host(v)
     return out
 
 

@@ -67,6 +67,7 @@ conventions of JAX's ``launch/hlo_analysis.py``.
 
 from __future__ import annotations
 
+import gc
 import itertools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -371,18 +372,33 @@ def _cached(shape: Tuple[int, ...], axes: Tuple[str, ...]) -> ProcessGrid:
     return grid
 
 
+def release_grids() -> None:
+    """Drop the cached grids, and with them their subgroups, now.  Call it
+    just after ``dist.destroy_process_group()``: that shuts the groups
+    down, but the cache still holds them, and a gloo group left alive
+    keeps its threads running into interpreter exit, where its teardown
+    can abort the process ("terminate called without an active
+    exception")."""
+    _CACHE.clear()
+    gc.collect()
+
+
+def as_grid(mesh) -> ProcessGrid:
+    """``mesh`` if it is a ``ProcessGrid``; anything else raises."""
+    if not isinstance(mesh, ProcessGrid):
+        raise TypeError(
+            f"mesh must be a repro_torch.core.grid.ProcessGrid, got "
+            f"{type(mesh).__name__}: a ProcessGrid over torch.distributed "
+            f"ranks is the port's counterpart of a JAX device mesh")
+    return mesh
+
+
 def resolve_grid(mesh: Optional[ProcessGrid], default: str) -> ProcessGrid:
     """``mesh`` if given (it must be a :class:`ProcessGrid`), else the
     ``default`` grid (``"square"`` or ``"rows"``)."""
     if mesh is None:
         return ProcessGrid.square() if default == "square" else ProcessGrid.rows()
-    if not isinstance(mesh, ProcessGrid):
-        raise NotImplementedError(
-            f"mesh must be a repro_torch.core.grid.ProcessGrid, got "
-            f"{type(mesh).__name__}: a ProcessGrid over torch.distributed "
-            f"ranks is the port's counterpart of a JAX device mesh "
-            f"(ROADMAP.md queue 1, item 11)")
-    return mesh
+    return as_grid(mesh)
 
 
 def resolve_row_axes(grid: ProcessGrid,

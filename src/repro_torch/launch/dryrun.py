@@ -356,6 +356,9 @@ def lm_record(args) -> Dict[str, Any]:
     if args.batch and args.batch < rows:
         cut = {"rows_per_rank": rows, "cut_to": args.batch}
         rows = args.batch
+    if args.seq and args.seq < shape.seq_len:
+        cut.update(seq_len=shape.seq_len, seq_cut_to=args.seq)
+        shape = dataclasses.replace(shape, seq_len=args.seq)
     rec["batch_cut"] = cut
     rec["measured"] = lm_measured_record(
         cfg, shape, grid, rows=rows, seed=args.seed, device=args.device,
@@ -393,6 +396,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--dibella-u", type=int, default=None)
     ap.add_argument("--batch", type=int, default=None,
                     help="LM: cut the measured rows per rank to this")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="LM: cut the measured step's sequence to this")
     ap.add_argument("--fsdp", action="store_true", default=True)
     ap.add_argument("--no-fsdp", dest="fsdp", action="store_false")
     ap.add_argument("--moe-impl", default=None)

@@ -12,8 +12,9 @@ over a KV cache.
 * ``cache_update`` writes the new keys and values into the cache in place,
   with ``dynamic_update_slice``'s clamp of the start.
 
-With gradients on, each KV block step is recomputed in the backward (JAX's
-``jax.checkpoint`` of ``kv_step``).
+With gradients on, each query block step, and inside it each KV block
+step, is recomputed in the backward (JAX's ``jax.checkpoint`` of
+``q_step`` and of ``kv_step``): only each query block's output is kept.
 
 On a :class:`~repro_torch.core.grid.ProcessGrid` whose ``"model"`` axis
 shards the cache's sequence, ``decode_attention_sharded`` is JAX's
@@ -84,28 +85,42 @@ def flash_attention(
                                          or v.requires_grad)
     outs = []
     for qi in range(n_qb):
-        qblk = qr[qi].float()
-        q_lo = q_offset + qi * qb
-        m = torch.full((b, hkv, g, qb), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((b, hkv, g, qb), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, hkv, g, qb, d), dtype=torch.float32, device=dev)
-        for ki in range(n_kb):
-            k_lo = ki * kb
-            if skip_ok and (k_lo > q_lo + qb - 1 or (
-                    window is not None and k_lo + kb - 1 <= q_lo - window)):
-                continue
-            args = (qblk, kr[ki], vr[ki], m, l, acc, q_lo, k_lo, skv, scale,
-                    causal, window)
-            if remat:  # JAX's jax.checkpoint of kv_step: no S² scores kept
-                m, l, acc = checkpoint(_kv_step, *args, use_reentrant=False)
-            else:
-                m, l, acc = _kv_step(*args)
-        out = acc / torch.clamp_min(l, 1e-30)[..., None]
-        outs.append(out.to(q.dtype))
+        args = (qr[qi], kr, vr, g, q_offset + qi * qb, skv, scale, causal,
+                window, skip_ok, remat)
+        if remat:  # JAX's jax.checkpoint of q_step: only the output kept
+            outs.append(checkpoint(_q_step, *args, use_reentrant=False))
+        else:
+            outs.append(_q_step(*args))
     # (n_qb, B, Hkv, G, qb, D) -> (B, n_qb·qb, Hq, D)
     out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(b, n_qb * qb, hq, d)
     return out[:, :sq]
+
+
+def _q_step(qsrc, kr, vr, g: int, q_lo: int, skv: int, scale, causal: bool,
+            window, skip_ok: bool, remat: bool):
+    """One query block against the KV blocks: qsrc (B, Hkv, G·qb, D), kr /
+    vr (n_kb, B, Hkv, kb, D); returns the block's output (B, Hkv, G, qb,
+    D) in ``qsrc``'s dtype."""
+    b, hkv, gq, d = qsrc.shape
+    qb, kb = gq // g, kr.shape[3]
+    dev = qsrc.device
+    qblk = qsrc.float()
+    m = torch.full((b, hkv, g, qb), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hkv, g, qb), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, g, qb, d), dtype=torch.float32, device=dev)
+    for ki in range(kr.shape[0]):
+        k_lo = ki * kb
+        if skip_ok and (k_lo > q_lo + qb - 1 or (
+                window is not None and k_lo + kb - 1 <= q_lo - window)):
+            continue
+        args = (qblk, kr[ki], vr[ki], m, l, acc, q_lo, k_lo, skv, scale,
+                causal, window)
+        if remat:  # JAX's jax.checkpoint of kv_step: no S² scores kept
+            m, l, acc = checkpoint(_kv_step, *args, use_reentrant=False)
+        else:
+            m, l, acc = _kv_step(*args)
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.to(qsrc.dtype)
 
 
 def _kv_step(qblk, kblk, vblk, m, l, acc, q_lo: int, k_lo: int, skv: int,

@@ -64,6 +64,7 @@ from ..core.grid import (
     ProcessGrid,
     all_gather,
     all_gather_replicated,
+    as_grid,
     enter,
     pmax_nograd,
     psum,
@@ -795,16 +796,6 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
         model = build_model(cfg, gen.device, train=train)
         model.init(gen)
     return model.eval()
-
-
-def as_grid(mesh) -> ProcessGrid:
-    """``mesh`` if it is a ``ProcessGrid``; anything else raises."""
-    if not isinstance(mesh, ProcessGrid):
-        raise TypeError(
-            f"mesh must be a repro_torch.core.grid.ProcessGrid, got "
-            f"{type(mesh).__name__}: a ProcessGrid over torch.distributed "
-            f"ranks is the port's counterpart of a JAX device mesh")
-    return mesh
 
 
 def grid_ctx(cfg: ModelConfig, grid: ProcessGrid, batch, caches=None,

@@ -3,7 +3,9 @@
 
 Prefill uses the chunked SSD form: inside a chunk of Q tokens the
 recurrence is a decay-masked quadratic form, and a (B, H, N, P) state is
-carried from chunk to chunk (JAX's ``lax.scan`` is a loop here).  Decode
+carried from chunk to chunk (JAX's ``lax.scan`` is a loop here).  With
+gradients on, each chunk step is recomputed in the backward (JAX's
+``jax.checkpoint`` of ``chunk_step``): only the carried state is kept.  Decode
 keeps the recurrent state and costs O(1) a token.  Products that JAX asks
 for in f32 (``preferred_element_type``) are f32 products of the upcast
 operands.
@@ -26,6 +28,7 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .layers import dense, rms_norm, softplus
 
@@ -85,28 +88,45 @@ def ssd_chunked(xh, dt, a_log, bmat, cmat, *, chunk: int = 128,
     tri = (torch.arange(q, device=dev)[:, None]
            >= torch.arange(q, device=dev)[None, :])[None, :, :, None]
 
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xh, dt, a_log, bmat, cmat))
     hstate = torch.zeros((b, h, n, p), dtype=torch.float32, device=dev)
     ys = []
     for ci in range(nc):
-        xq, lq, bq, cq = xs[:, ci], ls[:, ci], bs[:, ci], cs[:, ci]
-        cum = torch.cumsum(lq, dim=1)  # L_t inclusive
-        # intra-chunk: scores[t, s] = (C_t·B_s) exp(L_t − L_s) for s ≤ t
-        cb = torch.matmul(cq.float(), bq.float().transpose(1, 2))  # (B,Q,Q)
-        gap = cum[:, :, None, :] - cum[:, None, :, :]  # (B,t,s,H)
-        w = (torch.where(tri, torch.exp(gap), 0.0) * cb[..., None]).to(cdt)
-        y_intra = torch.einsum("btsh,bshp->bthp", w.float(), xq.float())
-        # contribution of the carried state: Y_t += C_t · h · exp(L_t)
-        y_inter = torch.einsum("btn,bhnp->bthp", cq.float(),
-                               hstate) * torch.exp(cum)[..., None]
-        # new state: h' = exp(L_end) h + Σ_s exp(L_end − L_s) B_s ⊗ x_s
-        lend = cum[:, -1, :]  # (B,H)
-        decay_s = torch.exp(lend[:, None, :] - cum).to(cdt)  # (B,Q,H)
-        s_chunk = torch.einsum("bsn,bsh,bshp->bhnp", bq.float(),
-                               decay_s.float(), xq.float())
-        hstate = torch.exp(lend)[:, :, None, None] * hstate + s_chunk
-        ys.append(y_intra + y_inter)
+        args = (hstate, xs[:, ci], ls[:, ci], bs[:, ci], cs[:, ci], tri, cdt)
+        if remat:  # JAX's jax.checkpoint of chunk_step: only the carry kept
+            hstate, yc = checkpoint(_chunk_step, *args, use_reentrant=False)
+        else:
+            hstate, yc = _chunk_step(*args)
+        ys.append(yc)
     y = torch.stack(ys, dim=1).reshape(b, nc * q, h, p)[:, :s]
     return y.to(xh.dtype), hstate
+
+
+def _chunk_step(hstate, xq, lq, bq, cq, tri, cdt):
+    """One SSD chunk: the carried state (B, H, N, P) f32 and the chunk's
+    xq (B, Q, H, P), lq (B, Q, H), bq/cq (B, Q, N); returns the next state
+    and the chunk's y (B, Q, H, P) f32."""
+    cum = torch.cumsum(lq, dim=1)  # L_t inclusive
+    # intra-chunk: scores[t, s] = (C_t·B_s) exp(L_t − L_s) for s ≤ t
+    cb = torch.matmul(cq.float(), bq.float().transpose(1, 2))  # (B,Q,Q)
+    gap = cum[:, :, None, :] - cum[:, None, :, :]  # (B,t,s,H)
+    # masked before the exp: above the diagonal the gap is positive and
+    # can pass exp's f32 range (88.7), and an inf there, though masked out
+    # of the value, makes the backward 0 · inf = NaN (JAX's where does)
+    w = (torch.exp(gap.masked_fill(~tri, float("-inf")))
+         * cb[..., None]).to(cdt)
+    y_intra = torch.einsum("btsh,bshp->bthp", w.float(), xq.float())
+    # contribution of the carried state: Y_t += C_t · h · exp(L_t)
+    y_inter = torch.einsum("btn,bhnp->bthp", cq.float(),
+                           hstate) * torch.exp(cum)[..., None]
+    # new state: h' = exp(L_end) h + Σ_s exp(L_end − L_s) B_s ⊗ x_s
+    lend = cum[:, -1, :]  # (B,H)
+    decay_s = torch.exp(lend[:, None, :] - cum).to(cdt)  # (B,Q,H)
+    s_chunk = torch.einsum("bsn,bsh,bshp->bhnp", bq.float(),
+                           decay_s.float(), xq.float())
+    hstate = torch.exp(lend)[:, :, None, None] * hstate + s_chunk
+    return hstate, y_intra + y_inter
 
 
 def ssd_decode_step(hstate, x1, dt1, a_log, b1, c1):

@@ -24,6 +24,8 @@ JOB_TIMEOUT_S = 240
 
 
 def _worker(rank, world, job, in_path, out_dir):
+    from repro_torch.core.grid import release_grids
+
     torch.set_num_threads(1)
     dist.init_process_group(
         "gloo", init_method="file://" + os.path.join(out_dir, "rendezvous"),
@@ -36,6 +38,7 @@ def _worker(rank, world, job, in_path, out_dir):
             pickle.dump(out, f)
     finally:
         dist.destroy_process_group()
+        release_grids()
 
 
 def run_ranks(world: int, job: str, inputs: dict, tmp_dir) -> list:

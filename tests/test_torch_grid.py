@@ -115,7 +115,7 @@ def test_pod_grid_axes_accepted():
 
 
 def test_non_process_grid_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="ProcessGrid"):
         resolve_grid(object(), "rows")
     with pytest.raises(ValueError):
         ProcessGrid(2, 2)  # 4 ranks asked, 1 present

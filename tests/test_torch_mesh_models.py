@@ -324,3 +324,98 @@ def test_checkpoint_on_2x2_resumes_on_4x1(train_resume):
     for out in train_resume:
         np.testing.assert_allclose(out["resumed_final"], out["straight_final"],
                                    rtol=F32_LOSS)
+
+
+# --- scripts/lm_grid_nccl.py on gloo ranks: the four-card runs' references ---
+
+GRID_SCRIPT_ARCHS = ("granite-moe-1b-a400m", "qwen2-moe-a2.7b", "mamba2-1.3b",
+                     "hymba-1.5b")
+
+
+@pytest.fixture(scope="module")
+def grid_script(tmp_path_factory):
+    """``scripts/lm_grid_nccl.py --backend gloo --device cpu --reduced`` on
+    the archs it runs beside qwen3-4b, and its resume of qwen3-4b: its
+    JSON lines by kind, and its exit code."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ck = tmp_path_factory.mktemp("grid_script") / "ckpt"
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "scripts", "lm_grid_nccl.py"),
+         "--backend", "gloo", "--device", "cpu", "--reduced", "--seq", "64",
+         "--arch", *GRID_SCRIPT_ARCHS, "--resume", "qwen3-4b",
+         "--ckpt-dir", str(ck)],
+        capture_output=True, text=True, timeout=900, cwd=root)
+    lines = [json.loads(x) for x in proc.stdout.splitlines()
+             if x.startswith("{")]
+    return {"rc": proc.returncode, "stderr": proc.stderr[-4000:],
+            "refs": {x["arch"]: x for x in lines if "reference" in x},
+            "grids": {(x["arch"], x["grid"]): x for x in lines if "grid" in x},
+            "resume": [x["resume"] for x in lines if "resume" in x],
+            "ckpt_left": ck.exists()}
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen2-moe-a2.7b"])
+def test_moe_shardmap_on_2x2_equals_per_rank_reference(grid_script, arch):
+    """``moe_impl="shardmap"`` takes each expert's capacity from the data
+    rank's own tokens, so its one-card reference runs each data-parallel
+    rank's rows as a batch of their own: the 2×2 loss and grad norm equal
+    it in f32 within 1e-5, and the bf16 tokens, with the reference's top-k
+    handed to the grid, equal it up to near ties, the grid's own top-k
+    differing only at router near ties.  With the reference's top-k handed
+    to the grid, step 0 and the f32 prefill logits equal it too (1e-5,
+    1e-4)."""
+    assert grid_script["rc"] == 0, grid_script["stderr"]
+    rec = grid_script["grids"][(arch, "2x2")]
+    assert rec["overrides"] == {"moe_impl": "shardmap"}
+    assert grid_script["refs"][arch]["reference"]["train_layers"] == 2
+    for r in rec["ranks"]:
+        tr, sv = r["train"], r["serve"]
+        assert tr["loss_rel_diff"] <= F32_LOSS
+        assert tr["grad_norm_rel_diff"] <= F32_LOSS
+        forced = tr["forced_reference_top_k"]
+        assert forced["loss_rel_diff"] <= F32_LOSS
+        assert forced["grad_norm_rel_diff"] <= F32_LOSS
+        assert tr["flips_are_router_ties"]
+        assert sv["forced_reference_top_k"] and sv["flips_are_router_ties"]
+        assert sv["tokens_agree_to_ties"] and sv["prefill_logits_within_0.15"]
+        assert sv["prefill32_logits_max_abs_diff"] <= F32_LOGITS
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b"])
+def test_ssm_archs_on_2x2_match_one_rank_with_and_without_batch_over_model(
+        grid_script, arch):
+    """Two rows a data-parallel rank, so that ``batch_over_model`` splits
+    them over ``"model"``: both layouts' loss and grad norm within 1e-5 of
+    one rank's; serving (caches, so no ``batch_over_model``) up to near
+    ties, its f32 prefill logits within 1e-4."""
+    assert grid_script["rc"] == 0, grid_script["stderr"]
+    plain = grid_script["grids"][(arch, "2x2")]
+    bom = grid_script["grids"][(arch, "2x2+batch_over_model")]
+    assert plain["rows_per_dp_rank"] == 2
+    assert bom["overrides"] == {"batch_over_model": True}
+    for rec in (plain, bom):
+        for r in rec["ranks"]:
+            assert r["train"]["loss_rel_diff"] <= F32_LOSS
+            assert r["train"]["grad_norm_rel_diff"] <= F32_LOSS
+    assert all(r["serve"]["tokens_agree_to_ties"] for r in plain["ranks"])
+    assert all(r["serve"]["prefill32_logits_max_abs_diff"] <= F32_LOGITS
+               for r in plain["ranks"])
+    assert all("serve" not in r for r in bom["ranks"])
+
+
+def test_grid_script_resumes_a_2x2_checkpoint_on_4x1(grid_script):
+    """Saved on 2×2 after two steps, restored, resharded onto 4×1: the third
+    step equals the straight third step within 1e-5; the checkpoint is
+    removed after."""
+    assert grid_script["rc"] == 0, grid_script["stderr"]
+    (rec,) = grid_script["resume"]
+    assert rec["arch"] == "qwen3-4b" and rec["step"] == 3
+    assert rec["loss_rel_diff"] <= F32_LOSS
+    assert rec["grad_norm_rel_diff"] <= F32_LOSS
+    assert rec["checkpoint_bytes"] > rec["state_bytes"] > 0
+    assert not grid_script["ckpt_left"]

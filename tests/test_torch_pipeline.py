@@ -107,5 +107,5 @@ def test_unported_features_raise(field, value):
     ``test_torch_cc.py``."""
     rs = _sim()
     cfg = dataclasses.replace(PipelineConfig(device="cpu"), **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="ProcessGrid"):
         assemble(rs.codes, rs.lengths, cfg)

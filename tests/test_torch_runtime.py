@@ -362,3 +362,49 @@ def test_chip_smoke_train_phase_rehearses_on_the_cpu(monkeypatch):
         cs.train_phase(types.SimpleNamespace(seed=0), cs.check, device="cpu")
     finally:
         torch.set_num_threads(threads)
+
+
+def test_chip_smoke_ssm_train_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 8d's control flow on the CPU at ``reduced()`` and 64 tokens:
+    both SSM archs train finite, and the second timed step lowers its
+    batch's loss."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(TC, "get_config", TC.reduced_config)
+    monkeypatch.setattr(cs, "TRAIN_SEQ", 64)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cs.ssm_train_phase(types.SimpleNamespace(seed=0), cs.check,
+                           device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_chip_smoke_long_prefill_phase_rehearses_on_the_cpu(monkeypatch,
+                                                             tmp_path):
+    """Phase 9d's control flow on the CPU: the dry run's ``prefill_32k``
+    step of qwen3-4b's ``reduced()`` config with the prompt cut to 1,024
+    tokens, on a 1×1 grid over a 1-rank gloo group; the first 512
+    positions equal the 512-token prefill's exactly on the CPU."""
+    import torch.distributed as dist
+
+    from repro_torch.core.grid import ProcessGrid, release_grids
+    from repro_torch.launch import dryrun as DR
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(TC, "get_config", TC.reduced_config)
+    monkeypatch.setattr(DR, "get_config", TC.reduced_config)
+    monkeypatch.chdir(tmp_path)  # the dry run writes under build/
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        rec = cs.long_prefill_phase(types.SimpleNamespace(seed=0), cs.check,
+                                    ProcessGrid(1, 1), torch.device("cpu"),
+                                    seq=1024)
+    finally:
+        dist.destroy_process_group()
+        release_grids()
+    assert rec["batch_cut"]["seq_cut_to"] == 1024
+    assert rec["measured"]["rows_per_rank"] == 2 and rec["measured"]["finite"]
+    assert rec["measured"]["flop_bound_ms"] > 0
+    assert rec["prefix_logits_max_abs_diff"] == 0.0

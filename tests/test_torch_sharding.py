@@ -243,6 +243,20 @@ def test_lm_dry_run_writes_its_record(tmp_path, arch, shape):
     assert rec["batch_cut"]["cut_to"] == 1
 
 
+def test_lm_dry_run_cuts_the_measured_sequence(tmp_path):
+    """``--seq`` cuts the measured step's prompt; the production record
+    keeps the shape's whole sequence."""
+    full = dryrun.main(["--arch", "qwen3-4b", "--shape", "prefill_32k",
+                        "--reduced", "--device", "cpu", "--batch", "1",
+                        "--seq", "256", "--out", str(tmp_path / "c.json")])
+    assert full["batch_cut"] == {"rows_per_rank": 2, "cut_to": 1,
+                                 "seq_len": 32768, "seq_cut_to": 256}
+    assert full["measured"]["finite"]
+    prod = full["production"]["roofline"]["flops_per_device"]
+    meas = full["measured"]["roofline"]["flops_per_device"]
+    assert meas < prod / 64  # 1 row of 256 tokens, not 2 of 32,768
+
+
 def test_lm_dry_run_skips_the_cells_jax_skips(tmp_path):
     rec = dryrun.main(["--arch", "qwen3-4b", "--shape", "long_500k",
                        "--reduced", "--device", "cpu",

@@ -268,6 +268,83 @@ def test_train_model_is_f32_with_gradients_and_remat():
     assert torch.equal(x.detach(), y)
 
 
+def _saved(fn, *args):
+    """What ``fn(*args)`` saves for its backward outside any checkpoint (a
+    checkpoint's own hooks take what is saved inside it): the saved
+    tensors' shapes and the count of distinct storages among them."""
+    saved = []
+
+    def pack(t):
+        saved.append(t)
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        fn(*args)
+    return ({tuple(t.shape) for t in saved},
+            len({t.untyped_storage().data_ptr() for t in saved}))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b", "qwen3-4b"])
+def test_ssd_and_query_block_steps_are_recomputed(arch, monkeypatch):
+    """With gradients on, the SSD chunk step and the attention query-block
+    step run under ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` of
+    ``chunk_step`` and ``q_step``): no (B, Q, Q, H) chunk buffer and no
+    per-KV-block accumulator is saved outside a checkpoint, and the
+    storages saved grow by one (B, H, N, P) carry a chunk and by none a
+    query block.  The same loops with the checkpoints taken out (patched
+    to plain calls here) save both, and more storage a step.  Loss and
+    gradients at ``reduced()``, with several SSD chunks, still equal
+    JAX's."""
+    from repro_torch.models import attention as TA
+    from repro_torch.models import ssm as TS
+
+    over = {"ssd_chunk": 8} if arch != "qwen3-4b" else {}
+    _, tcfg = _cfgs(arch, **over)
+    rng = np.random.default_rng(7)
+
+    def leaf(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.normal(size=shape) * scale).astype(np.float32)
+        ).requires_grad_(True)
+
+    def runs(mod, fn, make, n_steps):
+        """{plain, remat}: {steps: (shapes, storages)}."""
+        out = {}
+        for mode in ("remat", "plain"):
+            if mode == "plain":
+                monkeypatch.setattr(mod, "checkpoint",
+                                    lambda f, *a, **k: f(*a))
+            out[mode] = {n: _saved(fn, *make(n)) for n in n_steps}
+        monkeypatch.undo()
+        return out
+
+    if tcfg.family in ("ssm", "hybrid"):
+        h, p, n, q = 4, tcfg.ssm_headdim, tcfg.ssm_state, tcfg.ssd_chunk
+        r = runs(TS, lambda *a: TS.ssd_chunked(*a, chunk=q),
+                 lambda nc: (leaf(B, nc * q, h, p),
+                             leaf(B, nc * q, h, scale=0.1).abs(), leaf(h),
+                             leaf(B, nc * q, n), leaf(B, nc * q, n)), (2, 5))
+        assert (B, q, q, h) not in r["remat"][5][0]
+        assert (B, q, q, h) in r["plain"][5][0]
+        assert r["remat"][5][1] - r["remat"][2][1] == 3  # one carry a chunk
+        assert r["plain"][5][1] - r["plain"][2][1] > 3 * 4
+    if tcfg.family != "ssm":
+        hq, hkv, d, blk = tcfg.n_heads, tcfg.n_kv_heads, tcfg.head_dim, 8
+        r = runs(TA, lambda *a: TA.flash_attention(*a, q_block=blk,
+                                                   kv_block=blk),
+                 lambda nb: (leaf(B, nb * blk, hq, d),
+                             leaf(B, nb * blk, hkv, d),
+                             leaf(B, nb * blk, hkv, d)), (2, 5))
+        acc = (B, hkv, hq // hkv, blk, d)
+        assert acc not in r["remat"][5][0]
+        assert acc in r["plain"][5][0]
+        assert r["remat"][5][1] == r["remat"][2][1]  # nothing a query block
+        assert r["plain"][5][1] - r["plain"][2][1] > 3 * 4
+    jl, jg, tl, tg = _loss_pair(arch, "float32", **over)
+    np.testing.assert_allclose(tl, jl, rtol=F32_LOSS)
+    _grads_vs_jax(jg, tg, F32_LEAF)
+
+
 # --- the train step over 3 steps from JAX's carried state ---------------------
 
 
@@ -425,3 +502,43 @@ def test_train_default_device_raises_without_cuda():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TT.main(MAIN + ["--steps", "1"])
+
+
+def test_ssd_gradient_stays_finite_past_the_exp_range():
+    """Decays whose within-chunk gap passes exp's f32 range (88.7) above
+    the diagonal: JAX's ``ssd_chunked`` masks ``exp(gap)`` after the exp,
+    and its Δ gradient comes out non-finite (0 · inf, spread over every
+    position); the port masks the gap before the exp, so its gradients are
+    finite, and its value and its input gradient equal JAX's.  Just inside
+    the range (gaps up to 82.6) JAX's gradients are finite, and the port's
+    value, input gradient and Δ gradient all equal them."""
+    from repro.models import ssm as JS
+    from repro_torch.models import ssm as TS
+
+    rng = np.random.default_rng(11)
+    b, s, h, p, n = 1, 256, 2, 8, 4
+    xh = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    a_log = np.zeros((h,), np.float32)  # A = -1: a chunk's gaps up to 127·Δ
+    bm, cm = (rng.normal(size=(b, s, n)).astype(np.float32) for _ in range(2))
+
+    def jsum(x, d):
+        y, _ = JS.ssd_chunked(x, d, jnp.asarray(a_log), jnp.asarray(bm),
+                              jnp.asarray(cm), chunk=128)
+        return jnp.sum(y)
+
+    for delta, jax_finite in ((1.0, False), (0.65, True)):
+        dt = np.full((b, s, h), delta, np.float32)
+        jv, (jgx, jgd) = jax.value_and_grad(jsum, argnums=(0, 1))(
+            jnp.asarray(xh), jnp.asarray(dt))
+        assert np.isfinite(np.asarray(jgd)).all() == jax_finite
+        tx = torch.from_numpy(xh).requires_grad_(True)
+        td = torch.from_numpy(dt).requires_grad_(True)
+        y, _ = TS.ssd_chunked(tx, td, torch.from_numpy(a_log),
+                              torch.from_numpy(bm), torch.from_numpy(cm),
+                              chunk=128)
+        y.sum().backward()
+        assert torch.isfinite(tx.grad).all() and torch.isfinite(td.grad).all()
+        np.testing.assert_allclose(float(y.sum()), float(jv), rtol=F32_LOSS)
+        _leaf_close(tx.grad.numpy(), jgx, F32_LEAF, f"xh, delta {delta}")
+        if jax_finite:
+            _leaf_close(td.grad.numpy(), jgd, F32_LEAF, f"dt, delta {delta}")
