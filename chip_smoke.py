@@ -11,9 +11,12 @@ exit, no result line) on any check that does not hold:
 2. build   — ``nvcc`` builds every kernel of the main path from
              ``src/repro_torch/csrc`` (one process per source, in parallel);
 3. main    — after a warm-up on a 20 kb input, ``assemble()`` on the card
-             at full size: a 400 kb genome at depth 14, CLR-like reads (mean
-             1400, sd 250, 5 % error, 60 % indels; about 4000 reads, the
-             largest run on which the dense min-plus kernel still runs).
+             (``assembly_config``, one configuration for every assembly
+             run): a 400 kb genome at depth 14, CLR-like reads (mean 1400,
+             sd 250, 5 % error, 60 % indels; about 4000 reads, chosen as
+             the largest run on which the TR's dense min-plus kernel still
+             runs: n <= TR_DENSE_MAX_ROWS = 4096; phase 6b is the size users
+             assemble).
              The launch counts are set to 0 just before and read just
              after: every kernel of the path (xdrop, minplus, pileup) must
              have run;
@@ -90,6 +93,30 @@ exit, no result line) on any check that does not hold:
              the cell at ``--dibella-reads`` reads (the full config's
              4,194,304 by default): per-stage ms, the allocator's peak and
              the record's roofline terms;
+6b. bacterial — ``assemble()`` at the size of the smallest genomes users
+             assemble from long reads: 4,641,652 bp (E. coli K-12 MG1655's
+             length; the sequence random from ``--seed``), phase 3's read
+             model, 46,417 reads, ``assembly_config`` (``m_capacity`` 1 <<
+             23), nothing cut.  Phases 1-6 return first: under 1 GB may be
+             allocated when it starts.  ``assemble()`` traced, gspmd, its
+             counts set to 0 just before and read just after: xdrop once per
+             ``align_chunk`` block of live pairs, pileup 3, minplus 0 (n >
+             TR_DENSE_MAX_ROWS: ``tr_backend == "reference"``, the ELL
+             square); then shard_map on a 1×1 grid over a 1-rank NCCL group
+             (as 3b's): spgemm 1 (on ~416 M candidates), xdrop 1, pileup 3,
+             and R, S, the stats (but path and exchange keys) and the
+             polished contigs equal to the gspmd run's.  Each prints its
+             stage times, its stage peaks, the overflow counts and the graph
+             sizes.  Then, on this run's own captured inputs, exact against
+             the plain versions, with CUDA-event times beside phase 4's:
+             xdrop on the first and the last 4096-pair chunk (the plain
+             version takes ~3.5 s a chunk, so not the whole bucket), the
+             shard_map overlap launch of spgemm (the plain version in blocks
+             of 4096 rows: each row is its own), one whole pileup call.
+             Against the truth, on the host: contig count, N50, longest, the
+             genome fraction (the union of the contigs' truth intervals),
+             and the draft's and polished contigs' identity on the genome's
+             first 500 kb (polished >= draft); the phase's seconds;
 7. serve   — the language-model serving path (``repro_torch.models``,
              ``launch/serve.py``: torch ops, no hand kernel; the JAX LM path
              reaches no Pallas kernel either, and the launch counts, set to
@@ -256,9 +283,12 @@ def parse_args():
     return ap.parse_args()
 
 
-def simulate(simulate_mod, genome_kb: int, seed: int):
+def simulate(simulate_mod, genome_kb: float, seed: int):
+    """The reads of every assembly phase: a random ``genome_kb`` genome
+    (rounded to a base) from ``seed``, depth 14, CLR-like reads (mean 1400,
+    sd 250, 5 % error, 60 % of it indels)."""
     rng = __import__("numpy").random.default_rng(seed)
-    genome = simulate_mod.simulate_genome(rng, genome_kb * 1000)
+    genome = simulate_mod.simulate_genome(rng, round(genome_kb * 1000))
     return simulate_mod.simulate_reads(
         genome, depth=14, mean_len=1400, std_len=250, error_rate=0.05,
         indel_frac=0.6, seed=seed + 1,
@@ -278,6 +308,75 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def xdrop_bytes(a) -> int:
+    """Bytes an x-drop launch must move: both read batches, the six walk
+    inputs and the three outputs of each walk (int32)."""
+    walks = a[1].numel()  # pairs of the launch: directions x rows
+    return a[0].numel() + a[4].numel() + 4 * 6 * walks + 4 * 3 * walks
+
+
+def spgemm_work(args, kw, got):
+    """The work of a ring-stage launch on ``args`` with outputs ``got``:
+    ``candidates`` (a live A slot in range times the live B slots of the
+    row it selects), ``b_rows_read``, ``per_row`` ((S, n) candidates) and
+    the least time (``bound_ms``, ``bound_by``).  A sort of V keys needs
+    V log2 V comparisons at the least."""
+    import torch
+
+    offsets, a_cols, a_vals, b_cols, b_vals = args
+    stages, _, _ = a_cols.shape
+    nb = b_cols.shape[1]
+    reb = a_cols.long() - offsets.long()[:, None, None]
+    live_a = (a_cols >= 0) & (reb >= 0) & (reb < nb)
+    b_live = (b_cols >= 0).sum(-1)  # (S, nb)
+    sidx = torch.arange(stages, device=a_cols.device)[:, None, None]
+    per = torch.where(live_a, b_live[sidx, reb.clamp(0, nb - 1)], 0)
+    v = per.sum(-1).double()  # (S, n) candidates per row
+    lg = torch.ceil(torch.log2(v.clamp(min=1)))
+    cmp_ops = float((v * lg).sum())
+    n_cand = float(v.sum())
+    if kw["semiring"].name == "minplus_orient":
+        # (x): 8 adds + 4 mins, (+): 4 mins a candidate
+        t_ops = 16 * n_cand / F32_OPS_S + (cmp_ops + n_cand) / I32_OPS_S
+    else:  # (+): a count add and the pair selection
+        t_ops = (cmp_ops + 2 * n_cand) / I32_OPS_S
+    # bytes: the A panels and the outputs in full, and of B only the
+    # distinct rows a live A slot selects (most B rows are never read)
+    tensors = [offsets, a_cols, *a_vals.values(), got[0], *got[1].values(),
+               got[2]]
+    b_row = sum(t[0, 0].numel() * t.element_size()
+                for t in (b_cols, *b_vals.values()))
+    b_rows = sum(int(torch.unique(reb[s][live_a[s]]).numel())
+                 for s in range(stages))
+    t_bytes = (sum(t.numel() * t.element_size() for t in tensors)
+               + b_rows * b_row) / HBM_BYTES_S
+    return {"candidates": int(n_cand), "b_rows_read": b_rows, "per_row": v,
+            "t_bytes": t_bytes, "t_ops": t_ops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def pileup_work(draft, pieces, start, plen):
+    """``(bytes, operations, votes, tile list entries, tiles)`` of a
+    consensus call.  Bytes: the draft, the piece bytes on vote columns,
+    start and plen, the three outputs; operations: ~12 int32 a (column,
+    piece) vote (its compare, the ballot and popcount of its window, the
+    closed-form count of comparable positions, the gate and the count) and
+    ~12 a column (the vote epilogue)."""
+    import torch
+
+    from repro_torch.kernels.pileup import ops as pu_ops
+
+    c, l = draft.shape
+    lr = pieces.shape[2]
+    lo, hi = pu_ops.vote_ranges(start, plen, l, lr)
+    votes = int(torch.clamp(hi - lo, min=0).sum())
+    entries = int(pu_ops.tile_entries(start, plen, l, lr).sum())
+    tiles = c * -(-l // pu_ops.TILE)
+    bytes_ = c * l + votes + 8 * start.numel() + 9 * c * l
+    return bytes_, 12 * votes + 12 * c * l, votes, entries, tiles
 
 
 def _entry(mangled: str) -> str:
@@ -313,6 +412,345 @@ def ptxas_summary(log: str):
         elif "registers" in line:
             out[entry] = f"{line.split(':', 1)[-1].strip()}; {spill}"
     return out
+
+
+# --- phase 6b: assemble() at bacterial scale -------------------------------
+
+BACTERIAL_KB = 4641.652  # E. coli K-12 MG1655: 4,641,652 bp
+# reliable k-mers a genome base, with headroom: simulate()'s reads give
+# 6,366,718 at 4,641,652 bp (1.37 a base)
+RELIABLE_PER_BP = 1.5
+IDENTITY_BP = 500_000  # 6b's identity: the genome's first 500 kb
+SPGEMM_PLAIN_ROWS = 4096  # 6b's plain spgemm, in blocks of this many rows
+
+
+def assembly_config(genome_kb: float, device: str = "cuda"):
+    """The ``PipelineConfig`` of phases 3 and 6b and ``scripts/
+    grid_nccl.py`` for ``simulate``'s reads of a ``genome_kb`` genome:
+    ``m_capacity`` is the next power of two above ``RELIABLE_PER_BP``
+    k-mers a genome base (1 << 20 at 400 kb, 1 << 23 at
+    ``BACTERIAL_KB``)."""
+    from repro_torch.assembly.pipeline import PipelineConfig
+    from repro_torch.core.spmat import next_pow2
+
+    return PipelineConfig(
+        m_capacity=next_pow2(int(RELIABLE_PER_BP * genome_kb * 1000)),
+        upper=56, read_capacity=160, overlap_capacity=64, r_capacity=40,
+        band=65, max_steps=4096, xdrop=30, align_chunk=4096, device=device)
+
+
+def truth_quality(res, reads) -> dict:
+    """An ``assemble`` result against the simulated genome (host side):
+    the contig count, N50 and longest contig, the genome fraction (the
+    union of the contigs' truth intervals over the genome's length), and
+    the identity of the draft and polished contigs on the genome's first
+    ``IDENTITY_BP`` bases as the contigs of 2 reads or more cover them
+    (``banded_edit_distance`` is a host loop over rows): each such
+    contig's part whose truth lies there, length-weighted; a contig whose
+    truth interval crosses ``IDENTITY_BP`` is cut where its length, scaled by
+    its truth interval's, puts the crossing (so its indel drift up to
+    there may count as edits at the cut)."""
+    from repro_torch.assembly.metrics import contig_truth_interval, identity
+
+    genome, window = reads.genome, IDENTITY_BP
+    ivs = [contig_truth_interval(c, reads) if c.reads else None
+           for c in res.contigs]
+    covered, end = 0, 0
+    for lo, hi, _ in sorted(iv for iv in ivs if iv):
+        covered += max(0, hi - max(lo, end))
+        end = max(end, hi)
+    band = max(64, int(8 * 0.05 * 1400))
+
+    def window_identity(contigs):
+        num = den = 0.0
+        for c, iv in zip(contigs, ivs):
+            if iv is None or len(c.reads) < 2 or iv[0] >= window:
+                continue
+            lo, hi, o = iv
+            cut = min(hi, window)
+            m = round(len(c.codes) * (cut - lo) / (hi - lo))
+            codes = c.codes[len(c.codes) - m:] if o else c.codes[:m]
+            ref = genome[lo:cut]
+            if o:
+                ref = (3 - ref)[::-1]
+            num += identity(codes, ref, band=band) * m
+            den += m
+        return (num / den if den else float("nan")), int(den)
+
+    draft_id, nb = window_identity(res.contigs)
+    pol_id, nb_pol = window_identity(res.polished_contigs)
+    cs = res.stats["contigs"]
+    return {"n_contigs": cs["n_contigs"], "n50": cs["n50"],
+            "longest": cs["longest"], "total_length": cs["total_length"],
+            "genome_fraction": covered / len(genome),
+            "identity_window_bp": window,
+            "identity_bases": [nb, nb_pol],
+            "draft_identity": draft_id, "polished_identity": pol_id}
+
+
+def bacterial_phase(args, check, records, device: str = "cuda") -> dict:
+    """Phase 6b (module docstring): ``assemble()`` on the reads of a
+    ``BACTERIAL_KB`` genome with ``assembly_config``, gspmd and shard_map
+    on a 1×1 grid, both traced; each kernel of the path against its plain
+    version on the run's own inputs, its numbers added to its record in
+    ``records`` under ``"bacterial"``.  Only ``"cuda"`` is a measurement;
+    ``"cpu"`` rehearses the control flow (with ``BACTERIAL_KB`` patched
+    small; the ``cuda`` backend's plain versions, a gloo group, no launch
+    counts and no timing of kernels).  Returns the phase's record."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.assembly import simulate as sim
+    from repro_torch.assembly.pipeline import assemble
+    from repro_torch.core import backend as B
+    from repro_torch.core.grid import release_grids
+    from repro_torch.core.spmat import ell_equal
+    from repro_torch.core.transitive_reduction import TR_DENSE_MAX_ROWS
+
+    cuda = device == "cuda"
+    t_phase = time.perf_counter()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    reads = simulate(sim, BACTERIAL_KB, args.seed)
+    n = reads.n_reads
+    # traced on the card for the stage peaks (on the CPU a span boundary
+    # scans the live tensors, and the memory columns measure nothing)
+    cfg = dataclasses.replace(assembly_config(BACTERIAL_KB, device=device),
+                              backend="cuda", trace=cuda)
+    print(f"[bacterial] genome {len(reads.genome)} bp, {n} reads, depth "
+          f"{reads.depth:.2f}, max read {reads.codes.shape[1]}; simulated in "
+          f"{time.perf_counter() - t0:.1f} s on the host; m_capacity "
+          f"{cfg.m_capacity}", flush=True)
+
+    # the first and the last x-drop call, the consensus call and the
+    # shard_map run's overlap launch, each kept as the run made it
+    kept, calls = {}, {}
+    ops = {"xdrop_extend": K.xdrop_extend_batch,
+           "consensus": K.pileup_vote,
+           "spgemm_ring_stages": K.spgemm_ring_stages}
+
+    def keep(op, fn):
+        def wrapped(*a, **kw):
+            call = (a, kw)
+            kept[op] = [kept.get(op, [call])[0], call]
+            calls[op] = calls.get(op, 0) + 1
+            return fn(*a, **kw)
+        return wrapped
+
+    def stage_peaks(res):
+        return {sp.name: sp.attrs.get("peak_hbm_bytes")
+                for sp in (res.trace.roots if res.trace else ())}
+
+    for op in ("xdrop_extend", "consensus"):
+        B.register_op(op, "cuda", keep(op, ops[op]))
+    try:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = assemble(reads.codes, reads.lengths, cfg)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+    finally:
+        for op in ("xdrop_extend", "consensus"):
+            B.register_op(op, "cuda", ops[op])
+    st = res.stats
+    dense_tr = n <= TR_DENSE_MAX_ROWS
+    keys = ("overflow_A", "overflow_C", "overflow_R", "tr_overflow",
+            "m_reliable", "nnz_A", "nnz_C", "n_aligned", "align_bucket",
+            "n_passed", "nnz_R", "nnz_S", "n_contained", "tr_iterations",
+            "tr_backend", "peak_hbm_bytes", "hbm_source")
+    print(f"[bacterial] gspmd assemble {wall:.2f} s (traced: {cfg.trace}); "
+          "stages (s): "
+          + json.dumps(res.timings), flush=True)
+    print("[bacterial] gspmd " + json.dumps({k: st[k] for k in keys})
+          + "; stage peaks (bytes): " + json.dumps(stage_peaks(res))
+          + f"; launches {json.dumps(launches)}", flush=True)
+    check(st["tr_backend"] == ("cuda" if dense_tr else "reference"),
+          f"bacterial: tr_backend {st['tr_backend']!r} at {n} reads")
+    live_chunks = -(-max(st["n_aligned"], 1) // cfg.align_chunk)
+    if cuda:
+        check(launches["xdrop"] == live_chunks,
+              f"bacterial: {launches['xdrop']} xdrop launches for "
+              f"{st['n_aligned']} live pairs in {live_chunks} chunks")
+        check(launches["pileup"] == 3,
+              f"bacterial: {launches['pileup']} pileup launches")
+        check(launches["spgemm"] == 0 and (launches["minplus"] > 0) == dense_tr,
+              f"bacterial: launches {launches} (the TR's dense kernel runs "
+              f"only at n <= {TR_DENSE_MAX_ROWS})")
+    check(st["n_passed"] > 0 and res.consensus is not None
+          and res.consensus.n_contigs > 0, "bacterial: no contigs")
+    check(int(res.consensus.codes.max()) <= 3,
+          "bacterial: polished bases outside 0..3")
+    cap_x, cap_p = kept.pop("xdrop_extend"), kept.pop("consensus")
+    check(calls == {"xdrop_extend": live_chunks, "consensus": 1},
+          f"bacterial: op calls {calls}")
+
+    # --- the shard_map path on a 1-rank group (phase 3b's kind) ---
+    if cuda:
+        torch.cuda.empty_cache()
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    B.register_op("spgemm_ring_stages", "cuda",
+                  keep("spgemm_ring_stages", ops["spgemm_ring_stages"]))
+    try:
+        sm_cfg = dataclasses.replace(cfg, distribution="shard_map")
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res_sm = assemble(reads.codes, reads.lengths, sm_cfg)
+        sync()
+        wall_sm = time.perf_counter() - t0
+        sm_launches = K.launch_counts()
+    finally:
+        B.register_op("spgemm_ring_stages", "cuda",
+                      ops["spgemm_ring_stages"])
+        dist.destroy_process_group()
+        release_grids()
+    ss = res_sm.stats
+    print(f"[bacterial] shard_map (1x1) assemble {wall_sm:.2f} s (traced: "
+          f"{cfg.trace}); stages (s): " + json.dumps(res_sm.timings),
+          flush=True)
+    print("[bacterial] shard_map " + json.dumps({k: ss[k] for k in keys})
+          + "; stage peaks (bytes): " + json.dumps(stage_peaks(res_sm))
+          + f"; launches {json.dumps(sm_launches)}", flush=True)
+    if cuda:
+        check(sm_launches["spgemm"] == 1 and sm_launches["xdrop"] == 1
+              and sm_launches["pileup"] == 3
+              and (sm_launches["minplus"] > 0) == dense_tr,
+              f"bacterial shard_map: launches {sm_launches}")
+        check(ss["summa_backend"] == "cuda",
+              f"summa_backend {ss['summa_backend']!r}")
+    check(ell_equal(res.r_graph, res_sm.r_graph),
+          "bacterial: R differs, shard_map vs gspmd")
+    check(ell_equal(res.s_graph, res_sm.s_graph),
+          "bacterial: S differs, shard_map vs gspmd")
+    skip = set(PATH_KEYS) | set(SHARD_MAP_KEYS)
+    diff = [k for k in st if k not in skip and not k.startswith("exchange_")
+            and st[k] != ss.get(k)]
+    check(not diff, f"bacterial: stats differ, shard_map vs gspmd: {diff}")
+    a, b = res.polished_contigs, res_sm.polished_contigs
+    check(len(a) == len(b) and all(
+        x.reads == y.reads and np.array_equal(x.codes, y.codes)
+        for x, y in zip(a, b)), "bacterial: polished contigs differ")
+    print(f"[bacterial] shard_map == gspmd: R, S, "
+          f"{len([k for k in st if k not in skip and not k.startswith('exchange_')])}"
+          f" stats keys, {len(a)} polished contigs", flush=True)
+    cap_s = kept.pop("spgemm_ring_stages")[0]
+    check(calls["spgemm_ring_stages"] == 1,
+          f"bacterial shard_map: {calls['spgemm_ring_stages']} spgemm calls")
+    del res_sm
+
+    # --- the kernels against their plain versions, on this run's inputs ---
+    out = {}
+
+    def plain_once(fn):
+        sync()
+        t0 = time.perf_counter()
+        want = fn()
+        sync()
+        return want, (time.perf_counter() - t0) * 1e3
+
+    def exact(name, got, want):
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and torch.equal(g, w),
+                  f"bacterial {name}: the kernel differs from its plain "
+                  "version")
+
+    def entry(name, label, n_launches, ms, plain_ms, t_bytes, t_ops):
+        """One kernel's 6b record; ``t_bytes``, ``t_ops`` in seconds."""
+        rec = {"input": label, "launches": n_launches, "max_abs_err": 0,
+               "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        out.setdefault(name, []).append(rec)
+        print(f"[bacterial] {name} {json.dumps(rec)}", flush=True)
+
+    chunks = (("first", cap_x[0]), ("last", cap_x[1]))
+    if cap_x[0] is cap_x[1]:  # one chunk
+        chunks = (("first and last", cap_x[0]),)
+    for which, (xa, xkw) in chunks:
+        got = K.xdrop_extend_batch(*xa, **xkw)
+        (*want, cells), plain_ms = plain_once(
+            lambda: K.xdrop_extend_batch_ref(*xa, **xkw, with_cells=True))
+        exact("xdrop", list(got), want)
+        ms = time_ms(lambda: K.xdrop_extend_batch(*xa, **xkw), 5) \
+            if cuda else None
+        entry("xdrop", f"gspmd {which} chunk, {xa[0].shape[0]} pairs x 2 "
+              "directions", launches["xdrop"], ms, plain_ms,
+              xdrop_bytes(xa) / HBM_BYTES_S,
+              8 * int(cells.sum(dtype=torch.int64)) / I32_OPS_S)
+    del cap_x, got, want
+
+    sa, skw = cap_s
+    got = K.spgemm_ring_stages(*sa, **skw)
+    n_rows = sa[1].shape[1]
+
+    def plain_spgemm():
+        """The plain version in blocks of rows (each row is its own)."""
+        offsets, a_cols, a_vals, b_cols, b_vals = sa
+        parts = []
+        for r0 in range(0, n_rows, SPGEMM_PLAIN_ROWS):
+            rows = slice(r0, r0 + SPGEMM_PLAIN_ROWS)
+            parts.append(K.spgemm_ring_stages_ref(
+                offsets, a_cols[:, rows],
+                {k: v[:, rows] for k, v in a_vals.items()}, b_cols, b_vals,
+                **skw))
+        return (torch.cat([p[0] for p in parts], 1),
+                {k: torch.cat([p[1][k] for p in parts], 1) for k in got[1]},
+                sum(p[2] for p in parts))
+
+    want, plain_ms = plain_once(plain_spgemm)
+    exact("spgemm", [got[0], *got[1].values(), got[2]],
+          [want[0], *(want[1][k] for k in got[1]), want[2]])
+    work = spgemm_work(sa, skw, got)
+    ms = time_ms(lambda: K.spgemm_ring_stages(*sa, **skw), 3) if cuda else None
+    entry("spgemm", f"shard_map overlap launch, 1x1 grid, {n_rows} rows, "
+          f"{work['candidates']} candidates (plain version in blocks of "
+          f"{SPGEMM_PLAIN_ROWS} rows)", sm_launches["spgemm"], ms, plain_ms,
+          work["t_bytes"], work["t_ops"])
+    del cap_s, sa, got, want
+
+    (pd, pp, ps, pl), pkw = cap_p[0]
+    got = K.pileup_vote(pd, pp, ps, pl, **pkw)
+    want, plain_ms = plain_once(lambda: K.pileup_vote_ref(pd, pp, ps, pl,
+                                                          **pkw))
+    exact("pileup", got, want)
+    bytes_, ops_, votes, _, _ = pileup_work(pd, pp, ps, pl)
+    ms = time_ms(lambda: K.pileup_vote(pd, pp, ps, pl, **pkw), 5) \
+        if cuda else None
+    entry("pileup", f"the consensus call: {pd.shape[0]} contigs x "
+          f"{pd.shape[1]} columns, {pp.shape[1]} pieces of {pp.shape[2]}, "
+          f"{votes} votes", launches["pileup"], ms, plain_ms,
+          bytes_ / HBM_BYTES_S, ops_ / I32_OPS_S)
+    del cap_p, got, want
+    out["minplus"] = [{"input": f"n = {n} reads: " + (
+        "the dense TR" if dense_tr else
+        f"over TR_DENSE_MAX_ROWS = {TR_DENSE_MAX_ROWS}, the ELL square"),
+        "launches": launches["minplus"]}]
+    for rec in records:
+        if rec["name"] in out:
+            rec["bacterial"] = out[rec["name"]]
+
+    # --- against the truth ---
+    t0 = time.perf_counter()
+    q = truth_quality(res, reads)
+    print(f"[bacterial] vs truth ({time.perf_counter() - t0:.1f} s on the "
+          f"host): " + json.dumps(q), flush=True)
+    check(0.5 < q["draft_identity"] <= q["polished_identity"] <= 1.0,
+          f"bacterial identity vs truth: draft {q['draft_identity']}, "
+          f"polished {q['polished_identity']}")
+    check(0 < q["genome_fraction"] <= 1, "bacterial genome fraction")
+    phase = {"n_reads": n, "wall_s": wall, "shard_map_wall_s": wall_sm,
+             "peak_hbm_bytes": st["peak_hbm_bytes"],
+             "shard_map_peak_hbm_bytes": ss["peak_hbm_bytes"], **q,
+             "seconds": time.perf_counter() - t_phase}
+    print(f"[bacterial] phase 6b in {phase['seconds']:.1f} s", flush=True)
+    return phase
 
 
 # --- phase 7: the language-model serving path ------------------------------
@@ -1276,13 +1714,32 @@ def long_prefill_phase(args, check, grid, dev, seq=None) -> dict:
 
 def main() -> None:
     args = parse_args()
-    records, serve_ref = kernel_and_serve_phases(args)
+    records = kernel_phases(args)
     import torch
 
     from repro_torch import kernels as K
 
+    # --- 6b. assemble() at bacterial scale ---
+    # phases 1-6 returned: their tensors are garbage now
+    gc.collect()
+    torch.cuda.empty_cache()
+    live = torch.cuda.memory_allocated()
+    print(f"[bacterial] {live} bytes allocated before phase 6b", flush=True)
+    check(live < 1e9, f"{live} bytes still allocated after phases 1-6")
+    bacterial_phase(args, check, records)
+
+    # --- 7. serve ---
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    serve_ref = serve_phase(args, check)
+    check(sum(K.launch_counts().values()) == 0,
+          "the language-model path launched a hand kernel")
+    print(f"[serve] phase 7 in {time.perf_counter() - t0:.1f} s", flush=True)
+
     # --- 8. train ---
-    # phases 1-7 returned: their tensors are garbage now
+    # phase 7's tensors are garbage now
     gc.collect()
     torch.cuda.empty_cache()
     live = torch.cuda.memory_allocated()
@@ -1323,8 +1780,8 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def kernel_and_serve_phases(args):
-    """Phases 1-7; returns the kernels' records."""
+def kernel_phases(args):
+    """Phases 1-6; returns the kernels' records."""
     try:
         import numpy as np
         import torch
@@ -1347,7 +1804,7 @@ def kernel_and_serve_phases(args):
             write_contig_fasta,
         )
         from repro_torch.assembly.metrics import assembly_identity
-        from repro_torch.assembly.pipeline import PipelineConfig, assemble
+        from repro_torch.assembly.pipeline import assemble
         from repro_torch.core import backend as B
         from repro_torch.core import summa as SU
         from repro_torch.core.components import (
@@ -1399,11 +1856,7 @@ def kernel_and_serve_phases(args):
     reads = simulate(sim, args.genome_kb, args.seed)
     print(f"[main] genome {args.genome_kb} kb, {reads.n_reads} reads, depth "
           f"{reads.depth:.2f}, max read {reads.codes.shape[1]}", flush=True)
-    cfg = PipelineConfig(
-        m_capacity=1 << 20, upper=56, read_capacity=160, overlap_capacity=64,
-        r_capacity=40, band=65, max_steps=4096, xdrop=30, align_chunk=4096,
-        device="cuda",
-    )
+    cfg = assembly_config(args.genome_kb)
     captured = {}
 
     def capture(op, fn, keep):
@@ -1424,7 +1877,7 @@ def kernel_and_serve_phases(args):
     # cold start (CUDA context, lazily loaded library kernels, allocator
     # growth) is paid on a small input first, so the stage times below are
     # the steady state; its launches are not counted
-    small = simulate(sim, 20, args.seed)
+    small = simulate(sim, min(20, args.genome_kb), args.seed)
     t0 = time.perf_counter()
     assemble(small.codes, small.lengths, cfg)
     torch.cuda.synchronize()
@@ -1755,7 +2208,7 @@ def kernel_and_serve_phases(args):
         *want, cells, steps = K.xdrop_extend_batch_ref(
             *a, **kw, with_cells=True, with_steps=True)
         walks = a[1].numel()  # pairs of the launch: directions x rows
-        bytes_ = a[0].numel() + a[4].numel() + 4 * 6 * walks + 4 * 3 * walks
+        bytes_ = xdrop_bytes(a)
         stats = {"input": label, "pairs": walks,
                  "cells": int(cells.sum(dtype=torch.int64))}
         qs = torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64)
@@ -1855,17 +2308,8 @@ def kernel_and_serve_phases(args):
     want = K.pileup_vote_ref(draft, pieces, start, plen, min_depth=mdep)
     c, l = draft.shape
     m, lr = pieces.shape[1], pieces.shape[2]
-    lo, hi = pu_ops.vote_ranges(start, plen, l, lr)
-    votes = int(torch.clamp(hi - lo, min=0).sum())
-    entries = int(pu_ops.tile_entries(start, plen, l, lr).sum())
-    tiles = c * -(-l // pu_ops.TILE)
-    # bytes: the draft, the piece bytes on vote columns, start and plen, the
-    # three outputs; operations: ~12 int32 a (column, piece) vote (its
-    # compare, the ballot and popcount of its window, the closed-form
-    # count of comparable positions, the gate and the count) and ~12 a
-    # column (the vote epilogue)
-    bytes_ = c * l + votes + 8 * start.numel() + 9 * c * l
-    ops = 12 * votes + 12 * c * l
+    bytes_, ops, votes, entries, tiles = pileup_work(draft, pieces, start,
+                                                     plen)
     print(f"[kernels] pileup: {c} contigs x {l} columns, {m} pieces of {lr}, "
           f"{votes} (column, piece) votes; {tiles} tiles of "
           f"{pu_ops.TILE} columns, {entries} list entries "
@@ -1898,36 +2342,10 @@ def kernel_and_serve_phases(args):
                   f"spgemm ({label}): {key} differs from the plain version")
         check(torch.equal(got[0], want[0]) and int(got[2]) == int(want[2]),
               f"spgemm ({label}): cols or overflow differ from the plain version")
-        offsets, a_cols, a_vals, b_cols, b_vals = args
+        _, a_cols, _, b_cols, _ = args
         stages, n_a, ka = a_cols.shape
-        nb = b_cols.shape[1]
-        # candidates that exist: a live A slot in range times the live B
-        # slots of the row it selects; a sort of V keys needs V log2 V
-        # comparisons at the least
-        reb = a_cols.long() - offsets.long()[:, None, None]
-        live_a = (a_cols >= 0) & (reb >= 0) & (reb < nb)
-        b_live = (b_cols >= 0).sum(-1)  # (S, nb)
-        sidx = torch.arange(stages, device=a_cols.device)[:, None, None]
-        per = torch.where(live_a, b_live[sidx, reb.clamp(0, nb - 1)], 0)
-        v = per.sum(-1).double()  # (S, n) candidates per row
-        lg = torch.ceil(torch.log2(v.clamp(min=1)))
-        cmp_ops = float((v * lg).sum())
-        n_cand = float(v.sum())
-        if kw["semiring"].name == "minplus_orient":
-            # (x): 8 adds + 4 mins, (+): 4 mins a candidate
-            t_ops = 16 * n_cand / F32_OPS_S + (cmp_ops + n_cand) / I32_OPS_S
-        else:  # (+): a count add and the pair selection
-            t_ops = (cmp_ops + 2 * n_cand) / I32_OPS_S
-        # bytes: the A panels and the outputs in full, and of B only the
-        # distinct rows a live A slot selects (most B rows are never read)
-        tensors = [offsets, a_cols, *a_vals.values(), got[0], *got[1].values(),
-                   got[2]]
-        b_row = sum(t[0, 0].numel() * t.element_size()
-                    for t in (b_cols, *b_vals.values()))
-        b_rows = sum(int(torch.unique(reb[s][live_a[s]]).numel())
-                     for s in range(stages))
-        t_bytes = (sum(t.numel() * t.element_size() for t in tensors)
-                   + b_rows * b_row) / HBM_BYTES_S
+        work = spgemm_work(args, kw, got)
+        v = work["per_row"]
         sr = kw["semiring"]
         inst = f"<{sp_ops.SEMIRINGS[sr.name]}>"
         v_max = launch.attrs["max_candidates"]
@@ -1944,8 +2362,8 @@ def kernel_and_serve_phases(args):
               f"{routed} hold more than {fit} candidates")
         out = {
             "input": label, "stages": stages, "rows": n_a, "k_a": ka,
-            "k_b": b_cols.shape[2], "candidates": int(n_cand),
-            "b_rows_read": b_rows,
+            "k_b": b_cols.shape[2], "candidates": work["candidates"],
+            "b_rows_read": work["b_rows_read"],
             # the block's sizing: the fullest row's live candidates (after
             # the min-plus zero products), its shared memory, and the blocks
             # an SM holds at it; the instances' registers and spills
@@ -1965,8 +2383,7 @@ def kernel_and_serve_phases(args):
             "max_abs_err": 0,  # exact: any difference failed above
             "ms": time_ms(lambda: K.spgemm_ring_stages(*args, **kw), 5),
             "plain_ms": time_ms(lambda: K.spgemm_ring_stages_ref(*args, **kw), 1),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
         }
         print(f"[kernels] spgemm {json.dumps(out)}", flush=True)
         return out
@@ -2243,18 +2660,7 @@ def kernel_and_serve_phases(args):
           f"bytes; roofline {json.dumps(rec['roofline'])}; fraction "
           f"{rec['roofline_fraction']}", flush=True)
     del full
-
-    # --- 7. serve ---
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    K.reset_launch_counts()
-    serve_ref = serve_phase(args, check)
-    check(sum(K.launch_counts().values()) == 0,
-          "the language-model path launched a hand kernel")
-    print(f"[serve] phase 7 in {time.perf_counter() - t0:.1f} s", flush=True)
-    for op in originals:  # drop the capturing wrappers of phase 3
-        B.register_op(op, "cuda", originals[op])
-    return records, serve_ref
+    return records
 
 
 if __name__ == "__main__":

@@ -6,23 +6,34 @@ otherwise.
 
     PYTHONPATH=src python examples/torch_assemble_genome.py [--genome-kb 40] \\
         [--device cpu] [--out contigs.fasta]
+
+The configuration is ``chip_smoke.assembly_config``'s, sized from the
+genome's length: ``--genome-kb 4641.652`` (E. coli K-12's length, 46,417
+reads at depth 14, ``chip_smoke.py`` phase 6b's size) takes ``m_capacity``
+1 << 23.
 """
 
 import argparse
+import dataclasses
+import os
+import sys
 import time
 
 import numpy as np
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import assembly_config  # noqa: E402
+
 from repro_torch.assembly.contigs import contig_components, read_components
 from repro_torch.assembly.io_fasta import write_contig_fasta
 from repro_torch.assembly.metrics import assembly_identity
-from repro_torch.assembly.pipeline import PipelineConfig, assemble
+from repro_torch.assembly.pipeline import assemble
 from repro_torch.assembly.simulate import simulate_genome, simulate_reads
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--genome-kb", type=int, default=30)
+    ap.add_argument("--genome-kb", type=float, default=30)
     ap.add_argument("--depth", type=float, default=14)
     ap.add_argument("--error-rate", type=float, default=0.05)
     ap.add_argument("--indel-frac", type=float, default=0.6,
@@ -33,7 +44,7 @@ def main():
     args = ap.parse_args()
 
     rng = np.random.default_rng(0)
-    genome = simulate_genome(rng, args.genome_kb * 1000)
+    genome = simulate_genome(rng, round(args.genome_kb * 1000))
     reads = simulate_reads(genome, depth=args.depth, mean_len=1400,
                            std_len=250, error_rate=args.error_rate,
                            indel_frac=args.indel_frac, seed=1)
@@ -41,11 +52,9 @@ def main():
           f"depth {reads.depth:.1f}, error {args.error_rate:.0%} "
           f"(indel {args.indel_frac:.0%})")
 
-    cfg = PipelineConfig(
-        m_capacity=1 << 17, upper=int(4 * args.depth), read_capacity=160,
-        overlap_capacity=64, r_capacity=40, band=65, max_steps=4096,
-        xdrop=30, align_chunk=4096, device=args.device,
-    )
+    cfg = dataclasses.replace(assembly_config(args.genome_kb,
+                                              device=args.device),
+                              upper=int(4 * args.depth))
     t0 = time.time()
     res = assemble(reads.codes, reads.lengths, cfg)
     print(f"[run] {time.time()-t0:.1f}s total; stages:",

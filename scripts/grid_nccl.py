@@ -3,12 +3,14 @@
 card, over NCCL.
 
     python3 scripts/grid_nccl.py                    # needs 4 CUDA cards
+    python3 scripts/grid_nccl.py --genome-kb 4641.652   # E. coli's length
     python3 scripts/grid_nccl.py --backend gloo --device cpu --genome-kb 20
 
 Starts 4 processes, joins them into one process group
 (``tcp://localhost:<free port>``; rank ``r`` on ``cuda:r``) and, on every
-rank, on the same simulated reads (``chip_smoke.py``'s read model and
-configuration; a 400 kb genome, ~4000 reads, by default):
+rank, on the same simulated reads (``chip_smoke.simulate`` and
+``chip_smoke.assembly_config``; a 400 kb genome, ~4000 reads, by default;
+4,641,652 bp, 46,417 reads, as phase 6b, at ``--genome-kb 4641.652``):
 
 1. ``assemble()`` on the rank's own card alone (``distribution="gspmd"``):
    the one-card result;
@@ -24,7 +26,8 @@ rank.  Rank 0 prints one JSON line per grid: the run's wall time, each
 stage's time, the exchange time (the host time inside the grid's
 collectives, each bracketed by a device synchronise, so compute is not
 counted in it), the collectives' bytes by op beside the stats'
-``exchange_words_*`` and ``exchange_rounds_*``.  The first line is the
+``exchange_words_*`` and ``exchange_rounds_*``, and every rank's
+allocator peak (the one-card run's beside it).  The first line is the
 cards' names and power limits.  Exits non-zero on any difference, and
 without four cards (unless ``--device cpu``).
 """
@@ -50,16 +53,6 @@ SKIP = ("backend", "tr_backend", "distribution", "overlap_distribution",
         "summa_stages", "summa_backend", "summa_fallback_reason",
         "spgemm_hbm_round_trips", "spgemm_hbm_round_trips_reference",
         "peak_hbm_bytes", "hbm_bytes_in_use", "hbm_source")
-
-
-def simulate(genome_kb: int, seed: int):
-    import numpy as np
-    from repro_torch.assembly import simulate as sim
-
-    rng = np.random.default_rng(seed)
-    genome = sim.simulate_genome(rng, genome_kb * 1000)
-    return sim.simulate_reads(genome, depth=14, mean_len=1400, std_len=250,
-                              error_rate=0.05, indel_frac=0.6, seed=seed + 1)
 
 
 def timed_collectives(grid, device):
@@ -111,8 +104,10 @@ def worker(rank, args, port):
     import torch
     import torch.distributed as dist
 
-    sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.assembly.pipeline import PipelineConfig, assemble
+    sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
+    import chip_smoke as CS
+    from repro_torch.assembly import simulate as sim
+    from repro_torch.assembly.pipeline import assemble
     from repro_torch.core.grid import ProcessGrid
 
     if args.device == "cuda":
@@ -125,18 +120,21 @@ def worker(rank, args, port):
                             init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=WORLD)
     try:
-        reads = simulate(args.genome_kb, args.seed)
-        small = simulate(20, args.seed)
-        cfg = PipelineConfig(
-            m_capacity=1 << 20, upper=56, read_capacity=160,
-            overlap_capacity=64, r_capacity=40, band=65, max_steps=4096,
-            xdrop=30, align_chunk=4096, device=str(device))
+        reads = CS.simulate(sim, args.genome_kb, args.seed)
+        small = CS.simulate(sim, min(20, args.genome_kb), args.seed)
+        cfg = CS.assembly_config(args.genome_kb, device=str(device))
         assemble(small.codes, small.lengths, cfg)
         t0 = time.perf_counter()
         one = assemble(reads.codes, reads.lengths, cfg)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         one_wall = time.perf_counter() - t0
+        if rank == 0:
+            print(json.dumps({
+                "one_card": True, "n_reads": int(reads.n_reads),
+                "genome_bp": len(reads.genome), "m_capacity": cfg.m_capacity,
+                "wall_s": one_wall, "stages_s": one.timings,
+                "peak_hbm_bytes": one.stats["peak_hbm_bytes"]}), flush=True)
         for name, (shape, axes) in GRIDS.items():
             grid = ProcessGrid.of_shape(shape, axes)
             gcfg = dataclasses.replace(cfg, distribution="shard_map",
@@ -150,6 +148,8 @@ def worker(rank, args, port):
                 torch.cuda.synchronize(device)
             wall = time.perf_counter() - t0
             same(res, one, f"rank {rank}, grid {name}")
+            peaks = [None] * WORLD
+            dist.all_gather_object(peaks, res.stats["peak_hbm_bytes"])
             if rank == 0:
                 st = res.stats
                 print(json.dumps({
@@ -162,6 +162,8 @@ def worker(rank, args, port):
                     "summa_algorithm": st["summa_algorithm"],
                     **{k: v for k, v in st.items()
                        if k.startswith("exchange_")},
+                    "peak_hbm_bytes_by_rank": peaks,
+                    "one_card_peak_hbm_bytes": one.stats["peak_hbm_bytes"],
                     "equal_to_one_card": True}), flush=True)
             del res
     finally:
@@ -170,7 +172,8 @@ def worker(rank, args, port):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--genome-kb", type=int, default=400)
+    ap.add_argument("--genome-kb", type=float, default=400,
+                    help="genome length in kb (rounded to a base)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])

@@ -36,9 +36,12 @@ arch:
    sequence-sharded over ``"model"``, split-KV decode) on the rank's rows,
    whose tokens must equal the reference's up to the first step whose
    reference top-2 margin is a near tie (≤ 0.3, as ``chip_smoke.py``'s
-   7b), whose bf16 prefill logits must lie within 0.15 (rtol = atol) of
-   the reference's, and whose f32 prefill logits within 1e-4; it runs
-   once timed and once more with the collectives timed.  An MoE arch's
+   7b), whose f32 prefill logits must lie within 1e-4 (rtol = atol) of
+   the reference's, and whose bf16 prefill logits may lie no more than
+   0.15 further from one card's f32 logits than one card's own bf16
+   logits do (``bf16_prefill_ok``: bf16 rounding alone, at 48 layers,
+   takes one card's logits 0.29-0.33 from its f32 ones); it runs once
+   timed and once more with the collectives timed.  An MoE arch's
    grid takes the reference's top-k (f32 and bf16 sums over ranks round
    otherwise, and a flipped expert moves a token by far more than the
    rounding) for step 0's loss and grad norm (computed once more, without
@@ -110,6 +113,8 @@ RESUME_ROWS = 2  # 4 rows in all: one a rank on 4x1
 TIE = 0.3  # a top-2 margin at or below this is a near tie (chip_smoke 7b)
 RTOL = 1e-5
 F32_LOGITS = 1e-4  # f32 prefill logits, rtol = atol (tests/_lm_parity.py)
+# what a grid's bf16 prefill may add to one card's own bf16 error
+BF16_EXTRA = 0.15
 # the one-card training reference holds f32 parameters and gradients
 # (8 B a parameter) beside its activations (reckoned at 8 GB at 4096
 # tokens: a CE chunk's logits, the unembed operand and its gradient, one
@@ -450,7 +455,6 @@ def run_grid(arch, grid_name, overrides, do_serve, args, device, ref):
     got = prefill(cfg, params, mine, device, mesh=grid,
                   forced=logged(ref["routes"][i]) if moe else None)[0]
     want = ref["prefill_logits"][i * rows:(i + 1) * rows]
-    prefill_ok = bool((got - want).abs().le(0.15 + 0.15 * want.abs()).all())
     if not args.checks_only:
         SV.serve(cfg, params, mine, gen=4, mesh=grid)  # warm-up
     if cuda:
@@ -497,15 +501,17 @@ def run_grid(arch, grid_name, overrides, do_serve, args, device, ref):
     got32 = prefill(cfg_f, params, mine, device, mesh=grid,
                     forced=logged(ref["routes32"][i]) if moe else None)[0]
     want32 = ref["prefill32_logits"][i * rows:(i + 1) * rows]
+    bf16_ok, card_err, grid_err = bf16_prefill_ok(got, want, want32)
     out["serve"] = {
         "prefill_logits_max_abs_diff": float((got - want).abs().max()),
-        "prefill_logits_within_0.15": prefill_ok,
+        # the direct comparison, recorded; the check is the next key's
+        "prefill_logits_within_0.15": bool(
+            (got - want).abs().le(0.15 + 0.15 * want.abs()).all()),
+        "prefill_bf16_within_card_error": bf16_ok,
         "prefill32_logits_max_abs_diff": float((got32 - want32).abs().max()),
         "prefill32_logits_within_1e-4": bool(
             (got32 - want32).abs().le(F32_LOGITS * (1 + want32.abs())).all()),
-        "bf16_to_f32_max_abs_diff": {
-            "one_card": float((want - want32).abs().max()),
-            "grid": float((got - want32).abs().max())},
+        "bf16_to_f32_max_abs_diff": {"one_card": card_err, "grid": grid_err},
         "tokens_equal": bool(torch.equal(toks, sub["tokens"])),
         "tokens_agree_to_ties": (tokens_agree(toks, sub)
                                  and routing.get("flips_are_router_ties",
@@ -515,6 +521,17 @@ def run_grid(arch, grid_name, overrides, do_serve, args, device, ref):
     if cuda:
         torch.cuda.empty_cache()
     return out
+
+
+def bf16_prefill_ok(got, want, want32):
+    """The bf16 prefill check of one rank's rows: ``got`` the grid's bf16
+    logits, ``want`` one card's, ``want32`` one card's f32 logits of the
+    same weights.  Each bf16 side is measured against ``want32``; the
+    grid may add at most ``BF16_EXTRA`` to one card's own bf16 error.
+    Returns ``(ok, one card's error, the grid's error)``."""
+    card_err = float((want - want32).abs().max())
+    grid_err = float((got - want32).abs().max())
+    return grid_err <= card_err + BF16_EXTRA, card_err, grid_err
 
 
 def train_ok(tr) -> bool:
@@ -682,7 +699,7 @@ def worker(rank, args, port):
             if not train_ok(tr):
                 bad.append(f"{arch} {label} rank {rank}: train {tr}")
             sv = rec.get("serve")
-            if sv is not None and not (sv["prefill_logits_within_0.15"]
+            if sv is not None and not (sv["prefill_bf16_within_card_error"]
                                        and sv["prefill32_logits_within_1e-4"]
                                        and sv["tokens_agree_to_ties"]):
                 bad.append(f"{arch} {label} rank {rank}: serve {sv}")

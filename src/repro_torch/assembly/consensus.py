@@ -29,6 +29,17 @@ from .contigs import Contig, materialize_rows
 
 JUNCTION_WIN = 64
 _I32 = torch.int32
+# the piece slots the gathers below take at once: the (C, M) slots are
+# padded to the longest chain's, so only the live ones (reads; junctions)
+# are worked on, this many (~2.5 kB of bases each) a block
+PIECE_BLOCK = 1 << 14
+
+
+def _live_blocks(live: torch.Tensor):
+    """The flat ids of ``live``'s True entries, in blocks of
+    ``PIECE_BLOCK``."""
+    ids = torch.nonzero(live.reshape(-1)).reshape(-1)
+    return [ids[i:i + PIECE_BLOCK] for i in range(0, ids.numel(), PIECE_BLOCK)]
 
 
 @dataclasses.dataclass
@@ -55,19 +66,53 @@ class ConsensusResult:
 
 def _gather_pieces(states, offsets, widths, codes, lengths):
     """Every chain read in contig orientation and its nominal placement:
-    ``(pieces (C, M, LR) uint8, start (C, M) int32, plen (C, M) int32)``."""
+    ``(pieces (C, M, LR) uint8, start (C, M) int32, plen (C, M) int32)``;
+    empty slots hold no bases."""
     lr = codes.shape[1]
     valid = states >= 0
     r = torch.where(valid, states >> 1, 0).to(torch.int64)
-    rc = (torch.where(valid, states & 1, 0) == 1)[:, :, None]
     ln = torch.where(valid, lengths[r], 0)
     start = torch.where(valid, offsets + widths - ln, 0)
-    b = torch.arange(lr, dtype=_I32, device=codes.device)[None, None, :]
-    idx = torch.where(rc, ln[:, :, None] - 1 - b, b)
-    base = torch.gather(codes[r], 2, torch.clamp(idx, 0, lr - 1).to(torch.int64))
-    base = torch.where(rc, 3 - base, base)
-    pieces = torch.where(b < ln[:, :, None], base, 0).to(torch.uint8)
+    pieces = torch.zeros(tuple(states.shape) + (lr,), dtype=torch.uint8,
+                         device=codes.device)
+    flat = pieces.view(-1, lr)
+    b = torch.arange(lr, dtype=_I32, device=codes.device)[None, :]
+    for ids in _live_blocks(valid):
+        rc = ((states.reshape(-1)[ids] & 1) == 1)[:, None]
+        n = ln.reshape(-1)[ids][:, None]
+        idx = torch.where(rc, n - 1 - b, b)
+        base = torch.gather(codes[r.reshape(-1)[ids]], 1,
+                            torch.clamp(idx, 0, lr - 1).to(torch.int64))
+        base = torch.where(rc, 3 - base, base)
+        flat[ids] = torch.where(b < n, base, 0).to(torch.uint8)
     return pieces, start.to(_I32), ln.to(_I32)
+
+
+def _junction_scores(pieces, plen, pair, delta0, ov, shifts):
+    """``(C, M, S)`` banded-correlation scores of each junction (a piece
+    and its predecessor) at each shift; 0 off the junctions, so only
+    theirs are computed."""
+    c, m, lr = pieces.shape
+    dev = pieces.device
+    flat = pieces.reshape(-1, lr)
+    sc = torch.zeros((c * m, len(shifts)), dtype=_I32, device=dev)
+    b = torch.arange(lr, dtype=_I32, device=dev)[None, :]
+    for ids in _live_blocks(pair):  # t >= 1: id - 1 is the predecessor
+        cur = flat[ids].to(_I32)
+        prev = flat[ids - 1].to(_I32)
+        prev_len = plen.reshape(-1)[ids - 1][:, None]
+        d0 = delta0.reshape(-1)[ids][:, None]
+        near = ((b < plen.reshape(-1)[ids][:, None])
+                & (b >= (ov.reshape(-1)[ids] - JUNCTION_WIN)[:, None]))
+        cols = []
+        for d in shifts:
+            idx = b + d0 + d
+            ok = near & (idx >= 0) & (idx < prev_len)
+            pv = torch.gather(prev, 1,
+                              torch.clamp(idx, 0, lr - 1).to(torch.int64))
+            cols.append(torch.sum(ok & (pv == cur), dim=1, dtype=_I32))
+        sc[ids] = torch.stack(cols, dim=-1)
+    return sc.view(c, m, len(shifts))
 
 
 def _refine_layout(pieces, start, plen, *, radius: int):
@@ -77,30 +122,18 @@ def _refine_layout(pieces, start, plen, *, radius: int):
     c, m, lr = pieces.shape
     dev = pieces.device
     valid = plen > 0
-    prev = torch.roll(pieces, 1, dims=1).to(_I32)
     prev_len = torch.roll(plen, 1, dims=1)
     prev_start = torch.roll(start, 1, dims=1)
     t_pos = torch.arange(m, dtype=_I32, device=dev)[None, :]
     pair = valid & (t_pos >= 1) & (prev_len > 0)
     delta0 = torch.where(pair, start - prev_start, 0)
-
-    b = torch.arange(lr, dtype=_I32, device=dev)[None, None, :]
-    cur = pieces.to(_I32)
     ov = torch.where(pair, prev_start + prev_len - start, 0)
-
-    def score_at(d):
-        idx = b + delta0[:, :, None] + d
-        ok = (pair[:, :, None] & (b < plen[:, :, None])
-              & (b >= (ov - JUNCTION_WIN)[:, :, None])
-              & (idx >= 0) & (idx < prev_len[:, :, None]))
-        pv = torch.gather(prev, 2, torch.clamp(idx, 0, lr - 1).to(torch.int64))
-        return torch.sum(ok & (pv == cur), dim=2, dtype=_I32)
 
     # δ = 0 first so ties keep the nominal layout; then outward by |δ|
     shifts = [0]
     for d in range(1, radius + 1):
         shifts.extend((-d, d))
-    sc = torch.stack([score_at(d) for d in shifts], dim=-1)  # (C, M, S)
+    sc = _junction_scores(pieces, plen, pair, delta0, ov, shifts)
     pick = torch.argmax(sc, dim=-1)
     dbest = torch.tensor(shifts, dtype=_I32, device=dev)[pick]
     best = torch.amax(sc, dim=-1)
@@ -130,15 +163,19 @@ def _rescatter_draft(pieces, offs, widths, plen, *, l: int):
     last ``width`` bases at columns ``[offset, offset + width)``."""
     c, m, lr = pieces.shape
     dev = pieces.device
-    b = torch.arange(lr, dtype=_I32, device=dev)[None, None, :]
-    skip = (plen - widths)[:, :, None]
-    cols = offs[:, :, None] + b - skip
-    on = (b >= skip) & (b < plen[:, :, None]) & (cols >= 0) & (cols < l)
-    rows = torch.arange(c, device=dev)[:, None, None].expand(on.shape)
+    flat = pieces.reshape(-1, lr)
+    b = torch.arange(lr, dtype=_I32, device=dev)[None, :]
     out = torch.zeros((c, l), dtype=torch.uint8, device=dev)
-    # pieces of one contig never overlap in the refined layout, so each
-    # (row, column) is written at most once
-    out[rows[on], cols[on].to(torch.int64)] = pieces[on]
+    for ids in _live_blocks(plen > 0):
+        n = plen.reshape(-1)[ids][:, None]
+        skip = n - widths.reshape(-1)[ids][:, None]
+        cols = offs.reshape(-1)[ids][:, None] + b - skip
+        on = (b >= skip) & (b < n) & (cols >= 0) & (cols < l)
+        rows = torch.div(ids, m, rounding_mode="floor")[:, None].expand(
+            on.shape)
+        # pieces of one contig never overlap in the refined layout, so each
+        # (row, column) is written at most once
+        out[rows[on], cols[on].to(torch.int64)] = flat[ids][on]
     return out
 
 

@@ -212,6 +212,44 @@ def test_junction_refinement_matches_jax():
         np.asarray(jcons._rescatter_draft(jp[0], jr[1], jr[2], jp[2], l=l)))
 
 
+@pytest.mark.parametrize("block", [1, 4, 7, 64])
+def test_consensus_gathers_in_piece_blocks_match_jax(monkeypatch, block):
+    """The gathers over live piece slots only (reads for the pieces and
+    the draft, junctions for the scores), in blocks of ``PIECE_BLOCK``
+    that do not divide their counts: every output equals JAX's (C, M, LR)
+    gathers, and the polished set too."""
+    monkeypatch.setattr(tcons, "PIECE_BLOCK", block)
+    s, codes, lengths, cs = _chain_cset(5, 0.04)
+    jp = jcons._gather_pieces(jnp.asarray(cs.states), jnp.asarray(cs.offsets),
+                              jnp.asarray(cs.widths), jnp.asarray(codes),
+                              jnp.asarray(lengths))
+    tp = tcons._gather_pieces(_t(cs.states), _t(cs.offsets), _t(cs.widths),
+                              _t(codes), _t(lengths))
+    for a, b in zip(tp, jp):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert int((tp[2] > 0).sum()) % block or block == 1
+    rng = np.random.default_rng(block)
+    start = np.asarray(jp[1]) + rng.integers(-4, 5, jp[1].shape).astype(np.int32)
+    start = np.where(np.asarray(jp[2]) > 0, start, 0).astype(np.int32)
+    jr = jcons._refine_layout(jp[0], jnp.asarray(start), jp[2], radius=6)
+    tr = tcons._refine_layout(tp[0], _t(start), tp[2], radius=6)
+    for a, b in zip(tr, jr):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    l = max(int(tr[3].max()), 1)
+    np.testing.assert_array_equal(
+        tcons._rescatter_draft(tp[0], tr[1], tr[2], tp[2], l=l).numpy(),
+        np.asarray(jcons._rescatter_draft(jp[0], jr[1], jr[2], jp[2], l=l)))
+    j = jcons.polish_contig_set(cs, codes, lengths, backend="reference",
+                                junction_radius=12)
+    tcs = tcg._device_contig_gen(_port(s), _t(codes), _t(lengths))
+    t = tcons.polish_contig_set(tcs, _t(codes), _t(lengths),
+                                backend="reference", junction_radius=12)
+    for f in ("codes", "lengths", "states", "depth", "agree"):
+        np.testing.assert_array_equal(getattr(t, f).numpy(),
+                                      np.asarray(getattr(j, f)), f)
+    assert t.stats["n_junction_shifted"] == j.stats["n_junction_shifted"]
+
+
 @pytest.mark.parametrize("backend,jbackend", [("reference", "reference"),
                                               ("cuda", "pallas")])
 @pytest.mark.parametrize("radius", [0, 12])

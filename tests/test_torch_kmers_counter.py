@@ -46,6 +46,23 @@ def test_extract_kmers_matches_jax(k):
         np.testing.assert_array_equal(np.asarray(j[key]), t[key].numpy(), key)
 
 
+@pytest.mark.parametrize("k", [7, 15, 21])
+def test_extract_kmers_at_edge_lengths_matches_jax(k):
+    """Seeded reads whose lengths include k, k + 1, the padded maximum,
+    and lengths below k (no valid k-mer): every field equals JAX's."""
+    rng = np.random.default_rng(100 + k)
+    lmax = 3 * k + 5
+    codes = rng.integers(0, 4, (9, lmax)).astype(np.uint8)
+    lens = np.array([k, k + 1, lmax, lmax, k - 1, 0, 2 * k, lmax - 1, k + 2],
+                    np.int32)
+    codes[np.arange(lmax)[None, :] >= lens[:, None]] = 0
+    j = jk.extract_kmers(jnp.asarray(codes), jnp.asarray(lens), k=k)
+    t = tk.extract_kmers(torch.from_numpy(codes), torch.from_numpy(lens), k=k)
+    for key in ("hi", "lo", "strand", "pos", "valid"):
+        np.testing.assert_array_equal(np.asarray(j[key]), t[key].numpy(), key)
+    assert t["hi"].shape == (9, lmax - k + 1)
+
+
 def test_revcomp_matches_jax():
     rng = np.random.default_rng(4)
     codes = rng.integers(0, 4, (6, 30)).astype(np.uint8)

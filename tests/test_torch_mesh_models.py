@@ -383,6 +383,7 @@ def test_moe_shardmap_on_2x2_equals_per_rank_reference(grid_script, arch):
         assert tr["flips_are_router_ties"]
         assert sv["forced_reference_top_k"] and sv["flips_are_router_ties"]
         assert sv["tokens_agree_to_ties"] and sv["prefill_logits_within_0.15"]
+        assert sv["prefill_bf16_within_card_error"]
         assert sv["prefill32_logits_max_abs_diff"] <= F32_LOGITS
 
 
@@ -404,6 +405,8 @@ def test_ssm_archs_on_2x2_match_one_rank_with_and_without_batch_over_model(
             assert r["train"]["grad_norm_rel_diff"] <= F32_LOSS
     assert all(r["serve"]["tokens_agree_to_ties"] for r in plain["ranks"])
     assert all(r["serve"]["prefill32_logits_max_abs_diff"] <= F32_LOGITS
+               for r in plain["ranks"])
+    assert all(r["serve"]["prefill_bf16_within_card_error"]
                for r in plain["ranks"])
     assert all("serve" not in r for r in bom["ranks"])
 

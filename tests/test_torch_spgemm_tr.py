@@ -65,7 +65,7 @@ def _string_graph(seed, n=24, e=90, cap=12):
 
 
 @pytest.mark.parametrize("seed,capacity,row_chunk", [(0, 8, None), (1, 4, None),
-                                                     (2, 16, 5)])
+                                                     (2, 16, 5), (3, 4, 3)])
 def test_overlap_spgemm_matches_jax(seed, capacity, row_chunk):
     a, at = _a_matrix(seed)
     jc, jo = jsg.spgemm(a, at, semiring=jsr.overlap_semiring, capacity=capacity,
@@ -74,6 +74,10 @@ def test_overlap_spgemm_matches_jax(seed, capacity, row_chunk):
                         capacity=capacity, row_chunk=row_chunk)
     assert tsp.ell_equal(_port(jc), tc)
     assert int(jo) == int(to)
+    # row blocks (a chunk that does not divide n = 14) equal one block
+    whole, wo = tsg.spgemm(_port(a), _port(at), semiring=tsr.overlap_semiring,
+                           capacity=capacity)
+    assert tsp.ell_equal(whole, tc) and int(wo) == int(to)
 
 
 @pytest.mark.parametrize("row_chunk", [None, 7])
