@@ -14,7 +14,8 @@ The PyTorch counterpart of ``repro.assembly.contig_gen``'s device path
 
 The only host reads are four scalars (#chains, max chain length, #contigs,
 max contig length) that size the power-of-two padded tensors between the
-steps.  The op ``contig_gen`` is registered with ``"reference"`` = the host
+steps.  The steps are spans: ``Contigs.chains`` (1–3), ``Contigs.layout``
+and ``Contigs.gather`` (4).  The op ``contig_gen`` is registered with ``"reference"`` = the host
 walk of ``contigs.py`` and ``"cuda"`` = this device path; both give
 identical contigs.  ``string_matrix_from_edges`` and
 ``consistent_chain_graph`` build string matrices for tests and benchmarks.
@@ -38,7 +39,7 @@ from ..core.components import (
 )
 from ..core.semiring import MP, minplus_orient_semiring
 from ..core.spmat import EllMatrix, from_coo, next_pow2
-from ..obs import schema, validated
+from ..obs import schema, span, validated
 from .contigs import (
     Contig,
     extract_contig_chains,
@@ -379,27 +380,34 @@ def _device_contig_gen(s_mat, codes, lengths, contained=None, *,
     n = codes.shape[0]
     contained = (torch.zeros(n, dtype=torch.bool, device=codes.device)
                  if contained is None else contained.to(torch.bool))
-    st, dist_stats = _chain_state(s_mat, distribution=distribution,
-                                  mesh=mesh, row_axes=row_axes)
-    ca = next_pow2(int(st["n_chains"]))
-    m = next_pow2(int(st["max_chain"]))
-    lay = _chain_layout(st, lengths, contained, ca=ca, m=m)
-    c = next_pow2(int(lay["n_contigs"]))
-    l = next_pow2(int(lay["max_len"]))
-    out_codes, out_len, out_states, out_offs, out_widths = _gather_codes(
-        st, lay, codes, lengths, c=c, l=l)
-    stats = validated(
-        {
-            "n_branch_cut": int(st["n_branch_cut"]),
-            "cc_iterations": int(st["cc_iterations"]),
-            "distribution": distribution,
-            **dist_stats,
-        },
-        context="contig_gen", require_groups=("contig_exchange",),
-    )
+    with span("Contigs.chains", kind="step", distribution=distribution) as sp:
+        st, dist_stats = _chain_state(s_mat, distribution=distribution,
+                                      mesh=mesh, row_axes=row_axes)
+        n_chains = int(st["n_chains"])
+        max_chain = int(st["max_chain"])
+        sp.annotate(n_chains=n_chains, max_chain=max_chain)
+    with span("Contigs.layout", kind="step") as sp:
+        lay = _chain_layout(st, lengths, contained, ca=next_pow2(n_chains),
+                            m=next_pow2(max_chain))
+        n_contigs = int(lay["n_contigs"])
+        max_len = int(lay["max_len"])
+        sp.annotate(n_contigs=n_contigs, max_len=max_len)
+    with span("Contigs.gather", kind="step", n_contigs=n_contigs):
+        out_codes, out_len, out_states, out_offs, out_widths = _gather_codes(
+            st, lay, codes, lengths, c=next_pow2(n_contigs),
+            l=next_pow2(max_len))
+        stats = validated(
+            {
+                "n_branch_cut": int(st["n_branch_cut"]),
+                "cc_iterations": int(st["cc_iterations"]),
+                "distribution": distribution,
+                **dist_stats,
+            },
+            context="contig_gen", require_groups=("contig_exchange",),
+        )
     return ContigSet(codes=out_codes, lengths=out_len, states=out_states,
                      offsets=out_offs, widths=out_widths,
-                     n_contigs=int(lay["n_contigs"]), stats=stats)
+                     n_contigs=n_contigs, stats=stats)
 
 
 def _reference_contig_gen(s_mat, codes, lengths, contained=None, *,

@@ -18,6 +18,7 @@ import torch
 
 from ..core.semiring import Semiring
 from ..core.spmat import from_coo
+from ..obs import span
 
 
 def _first_runs(vals, run_id, run_start):
@@ -57,48 +58,54 @@ def count_and_select(kmers: dict, *, lower: int = 2, upper: int = 8) -> KmerCoun
     n, p = kmers["hi"].shape
     e = n * p
     dev = kmers["hi"].device
-    hi = kmers["hi"].reshape(e)
-    lo = kmers["lo"].reshape(e)
-    valid = kmers["valid"].reshape(e)
-    read_id = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
-    read_id = read_id.expand(n, p).reshape(e)
-    pos_code = (kmers["pos"] * 2 + kmers["strand"]).reshape(e)
+    with span("CountKmer.sort", kind="step", instances=e):
+        hi = kmers["hi"].reshape(e)
+        lo = kmers["lo"].reshape(e)
+        valid = kmers["valid"].reshape(e)
+        read_id = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+        read_id = read_id.expand(n, p).reshape(e)
+        pos_code = (kmers["pos"] * 2 + kmers["strand"]).reshape(e)
 
-    big = 2**30
-    hik = torch.where(valid, hi, big).to(torch.int64)
-    lok = torch.where(valid, lo, big).to(torch.int64)
-    order = torch.sort((hik << 31) | lok, stable=True).indices
-    hs, ls, vs = hik[order], lok[order], valid[order]
+        big = 2**30
+        hik = torch.where(valid, hi, big).to(torch.int64)
+        lok = torch.where(valid, lo, big).to(torch.int64)
+        order = torch.sort((hik << 31) | lok, stable=True).indices
+        hs, ls, vs = hik[order], lok[order], valid[order]
 
-    new_run = torch.ones(e, dtype=torch.bool, device=dev)
-    new_run[1:] = (hs[1:] != hs[:-1]) | (ls[1:] != ls[:-1])
-    idx = torch.arange(e, dtype=torch.int64, device=dev)
-    run_start = torch.cummax(torch.where(new_run, idx, -1), 0).values
-    next_new = torch.ones(e, dtype=torch.bool, device=dev)
-    next_new[:-1] = new_run[1:]
-    run_end = torch.flip(
-        torch.cummin(torch.flip(torch.where(next_new, idx, e), (0,)), 0).values,
-        (0,),
-    )
-    count_s = torch.where(vs, run_end - run_start + 1, 0).to(torch.int32)
+    with span("CountKmer.runs", kind="step", instances=e):
+        new_run = torch.ones(e, dtype=torch.bool, device=dev)
+        new_run[1:] = (hs[1:] != hs[:-1]) | (ls[1:] != ls[:-1])
+        idx = torch.arange(e, dtype=torch.int64, device=dev)
+        run_start = torch.cummax(torch.where(new_run, idx, -1), 0).values
+        next_new = torch.ones(e, dtype=torch.bool, device=dev)
+        next_new[:-1] = new_run[1:]
+        run_end = torch.flip(
+            torch.cummin(torch.flip(torch.where(next_new, idx, e), (0,)),
+                         0).values,
+            (0,),
+        )
+        count_s = torch.where(vs, run_end - run_start + 1, 0).to(torch.int32)
 
-    reliable_s = vs & (count_s >= lower) & (count_s <= upper)
-    rel_run_start = new_run & reliable_s
-    col_s = (torch.cumsum(rel_run_start.to(torch.int32), 0) - 1).to(torch.int32)
-    col_s = torch.where(reliable_s, col_s, -1)
+    with span("CountKmer.select", kind="step", instances=e):
+        reliable_s = vs & (count_s >= lower) & (count_s <= upper)
+        rel_run_start = new_run & reliable_s
+        col_s = (torch.cumsum(rel_run_start.to(torch.int32), 0) - 1).to(
+            torch.int32)
+        col_s = torch.where(reliable_s, col_s, -1)
 
-    inv = torch.empty(e, dtype=torch.int64, device=dev)
-    inv[order] = idx
-    return KmerCount(
-        read_id=read_id,
-        pos_code=pos_code,
-        col_id=col_s[inv],
-        count=count_s[inv],
-        reliable=reliable_s[inv],
-        m_reliable=torch.sum(rel_run_start).to(torch.int32),
-        n_unique=torch.sum(new_run & vs).to(torch.int32),
-        n_singleton=torch.sum(new_run & vs & (count_s < lower)).to(torch.int32),
-    )
+        inv = torch.empty(e, dtype=torch.int64, device=dev)
+        inv[order] = idx
+        return KmerCount(
+            read_id=read_id,
+            pos_code=pos_code,
+            col_id=col_s[inv],
+            count=count_s[inv],
+            reliable=reliable_s[inv],
+            m_reliable=torch.sum(rel_run_start).to(torch.int32),
+            n_unique=torch.sum(new_run & vs).to(torch.int32),
+            n_singleton=torch.sum(new_run & vs & (count_s < lower)).to(
+                torch.int32),
+        )
 
 
 def build_matrices(kc: KmerCount, *, n_reads: int, m_capacity: int,

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs import span
+
 COMPLEMENT = 3  # complement(code) = 3 - code
 BASES = "ACGT"
 
@@ -65,16 +67,18 @@ def extract_kmers(codes: torch.Tensor, lengths: torch.Tensor, *, k: int):
     n, lmax = codes.shape
     dev = codes.device
     p = lmax - k + 1
-    pos = torch.arange(p, dtype=torch.int32, device=dev)
-    win = (pos[:, None] + torch.arange(k, dtype=torch.int32, device=dev)[None, :])
-    w = codes[:, win.to(torch.int64)].to(torch.int32)  # (n, P, k)
-    fwd_hi, fwd_lo = _pack(w, k)
-    rc_hi, rc_lo = _pack(COMPLEMENT - torch.flip(w, dims=(-1,)), k)
-    fwd_smaller = (fwd_hi < rc_hi) | ((fwd_hi == rc_hi) & (fwd_lo <= rc_lo))
-    return {
-        "hi": torch.where(fwd_smaller, fwd_hi, rc_hi),
-        "lo": torch.where(fwd_smaller, fwd_lo, rc_lo),
-        "strand": (~fwd_smaller).to(torch.int32),
-        "pos": pos[None, :].expand(n, p),
-        "valid": pos[None, :] < (lengths.to(torch.int32)[:, None] - k + 1),
-    }
+    with span("CountKmer.extract", kind="step", instances=n * p):
+        pos = torch.arange(p, dtype=torch.int32, device=dev)
+        win = (pos[:, None]
+               + torch.arange(k, dtype=torch.int32, device=dev)[None, :])
+        w = codes[:, win.to(torch.int64)].to(torch.int32)  # (n, P, k)
+        fwd_hi, fwd_lo = _pack(w, k)
+        rc_hi, rc_lo = _pack(COMPLEMENT - torch.flip(w, dims=(-1,)), k)
+        fwd_smaller = (fwd_hi < rc_hi) | ((fwd_hi == rc_hi) & (fwd_lo <= rc_lo))
+        return {
+            "hi": torch.where(fwd_smaller, fwd_hi, rc_hi),
+            "lo": torch.where(fwd_smaller, fwd_lo, rc_lo),
+            "strand": (~fwd_smaller).to(torch.int32),
+            "pos": pos[None, :].expand(n, p),
+            "valid": pos[None, :] < (lengths.to(torch.int32)[:, None] - k + 1),
+        }

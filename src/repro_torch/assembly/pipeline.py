@@ -29,9 +29,13 @@ result; without a process group the grid is 1×1.  As in JAX, TrReduction
 stays local.
 
 Each stage is an ``obs.span``: ``AssemblyResult.timings`` holds the stage
-spans' durations, and ``trace=True`` keeps the span tree (stages →
-shard_map phases → ``op:<name>`` dispatches → kernel launches, each with
-its device-memory columns) on ``AssemblyResult.trace``.
+spans' durations, and ``trace=True`` keeps the span tree (stages → steps
+and shard_map phases → ``op:<name>`` dispatches → kernel launches, each
+with its device interval and device-memory columns) on
+``AssemblyResult.trace``.  The steps (``<Stage>.<step>``, kind ``"step"``)
+split CountKmer (extract, sort, runs, select), Alignment (candidates,
+xdrop, scatter), TrReduction (square and prune, once an iteration) and
+Contigs (chains, layout, gather on the device path; materialize).
 """
 
 from __future__ import annotations
@@ -113,9 +117,9 @@ class PipelineConfig:
     # grid-row axes of the shard_map stages (None: the grid's ("pod",
     # "data") axes, JAX's infer_row_axes)
     row_axes: Optional[Tuple[str, ...]] = None
-    # collect a hierarchical span trace (stage → shard_map phase → op →
-    # kernel launch) on AssemblyResult.trace; spans also open
-    # torch.profiler.record_function ranges of the same names
+    # collect a hierarchical span trace (stage → step or shard_map phase →
+    # op → kernel launch) on AssemblyResult.trace; spans also open
+    # torch.profiler.record_function ranges named by their labels
     trace: bool = False
     # where the pipeline runs; a CUDA device that is absent raises
     device: str = "cuda"
@@ -166,7 +170,13 @@ def assemble(codes, lengths, cfg: PipelineConfig = PipelineConfig()
 
     The run executes under a device-memory watermark (``obs.memory``), so
     the stats carry the ``peak_hbm_bytes`` family; on a CUDA device the
-    allocator's peak is reset first, so the peak is this run's."""
+    allocator's peak is reset first, so the peak is this run's, and an
+    untraced call resets it nowhere else.  A traced call (``cfg.trace``)
+    resets it as each span opens, to give each span its own peak: after a
+    traced call ``torch.cuda.max_memory_allocated`` is the peak since the
+    last span opened, while ``stats["peak_hbm_bytes"]`` stays the whole
+    run's.  The traced call resolves its tracer (``Tracer.resolve``) once
+    the last stage has synchronised."""
     _check_supported(cfg)
     device = resolve_device(cfg.device)
     if device.type == "cuda":
@@ -174,6 +184,8 @@ def assemble(codes, lengths, cfg: PipelineConfig = PipelineConfig()
     tracer = Tracer(annotate=True, device=device) if cfg.trace else None
     with watermark(device) as wm, tracing(tracer):
         res = _assemble(codes, lengths, cfg, device)
+    if tracer is not None:
+        tracer.resolve()
     res.trace = tracer
     res.stats.update(validated({
         "peak_hbm_bytes": wm.peak_hbm_bytes,
@@ -187,59 +199,64 @@ def _align_candidates(codes, lengths, c_mat, n, cfg, backend, device):
     """The Alignment stage: compact the live candidates of C into a pow-2
     bucket, extend each pair both ways, scatter back to slot order."""
     kq = c_mat.capacity
-    pair_i = torch.arange(n, dtype=_I32, device=device)[:, None]
-    pair_i = pair_i.expand(n, kq).reshape(-1)
-    pair_j = c_mat.cols.reshape(-1)
-    cnt = c_mat.vals["cnt"].reshape(-1)
-    apos = c_mat.vals["apos"][..., 0].reshape(-1)
-    bpos = c_mat.vals["bpos"][..., 0].reshape(-1)
-    pv = (pair_j > pair_i) & (cnt >= cfg.min_shared_kmers)
+    e_total = n * kq
+    with span("Alignment.candidates", kind="step", candidates=e_total) as sp:
+        pair_i = torch.arange(n, dtype=_I32, device=device)[:, None]
+        pair_i = pair_i.expand(n, kq).reshape(-1)
+        pair_j = c_mat.cols.reshape(-1)
+        cnt = c_mat.vals["cnt"].reshape(-1)
+        apos = c_mat.vals["apos"][..., 0].reshape(-1)
+        bpos = c_mat.vals["bpos"][..., 0].reshape(-1)
+        pv = (pair_j > pair_i) & (cnt >= cfg.min_shared_kmers)
 
-    pa = torch.div(apos, 2, rounding_mode="floor")
-    ca = torch.remainder(apos, 2)
-    pb = torch.div(bpos, 2, rounding_mode="floor")
-    cb = torch.remainder(bpos, 2)
-    strand = torch.where(pv, ca ^ cb, 0)
-    li = lengths[torch.where(pv, pair_i, 0).to(torch.int64)]
-    lj = lengths[torch.where(pv, pair_j, 0).to(torch.int64)]
-    pb_or = torch.where(strand == 1, lj - cfg.k - pb, pb)
+        pa = torch.div(apos, 2, rounding_mode="floor")
+        ca = torch.remainder(apos, 2)
+        pb = torch.div(bpos, 2, rounding_mode="floor")
+        cb = torch.remainder(bpos, 2)
+        strand = torch.where(pv, ca ^ cb, 0)
+        li = lengths[torch.where(pv, pair_i, 0).to(torch.int64)]
+        lj = lengths[torch.where(pv, pair_j, 0).to(torch.int64)]
+        pb_or = torch.where(strand == 1, lj - cfg.k - pb, pb)
 
-    # candidate compaction: align only the live slots, padded to the next
-    # power of two of their count, then scatter back to slot order
-    e_total = int(pair_i.shape[0])
-    n_live = int(torch.sum(pv))
-    bucket = next_pow2(n_live)
-    idx = torch.zeros(bucket, dtype=torch.int64, device=device)
-    idx[:n_live] = torch.nonzero(pv).reshape(-1)
-    live = torch.arange(bucket, device=device) < n_live
-    cand = {
-        "i": pair_i[idx],
-        "j": pair_j[idx],
-        "li": li[idx],
-        "lj": lj[idx],
-        "pa": torch.clamp(pa[idx], min=0),
-        "pb": torch.clamp(pb_or[idx], min=0),
-        "strand": strand[idx],
-    }
+        # candidate compaction: align only the live slots, padded to the
+        # next power of two of their count, then scatter back to slot order
+        n_live = int(torch.sum(pv))
+        bucket = next_pow2(n_live)
+        idx = torch.zeros(bucket, dtype=torch.int64, device=device)
+        idx[:n_live] = torch.nonzero(pv).reshape(-1)
+        live = torch.arange(bucket, device=device) < n_live
+        cand = {
+            "i": pair_i[idx],
+            "j": pair_j[idx],
+            "li": li[idx],
+            "lj": lj[idx],
+            "pa": torch.clamp(pa[idx], min=0),
+            "pb": torch.clamp(pb_or[idx], min=0),
+            "strand": strand[idx],
+        }
+        sp.annotate(n_live=n_live, bucket=bucket)
 
-    if cfg.distribution == "shard_map":
-        res_b, align_stats = align_bucket_shard_map(
-            codes, cand, k=cfg.k, mesh=cfg.mesh, row_axes=cfg.row_axes,
-            backend=backend, xdrop=cfg.xdrop, match=cfg.match, mismatch=cfg.mismatch,
-            gap=cfg.gap, band=cfg.band, max_steps=cfg.max_steps,
-            n_live=n_live)
-    else:
-        res_b = _align_local(codes, cand, bucket, n_live, cfg, backend)
-        align_stats = {}
-    slots = idx[live]
+    with span("Alignment.xdrop", kind="step", n_live=n_live):
+        if cfg.distribution == "shard_map":
+            res_b, align_stats = align_bucket_shard_map(
+                codes, cand, k=cfg.k, mesh=cfg.mesh, row_axes=cfg.row_axes,
+                backend=backend, xdrop=cfg.xdrop, match=cfg.match,
+                mismatch=cfg.mismatch, gap=cfg.gap, band=cfg.band,
+                max_steps=cfg.max_steps, n_live=n_live)
+        else:
+            res_b = _align_local(codes, cand, bucket, n_live, cfg, backend)
+            align_stats = {}
 
-    def _scatter(x):
-        buf = torch.zeros((e_total,) + tuple(x.shape[1:]), dtype=x.dtype,
-                          device=device)
-        buf[slots] = x[live]
-        return buf
+    with span("Alignment.scatter", kind="step", n_live=n_live):
+        slots = idx[live]
 
-    res = al.PairAlignment(*(_scatter(x) for x in res_b))
+        def _scatter(x):
+            buf = torch.zeros((e_total,) + tuple(x.shape[1:]), dtype=x.dtype,
+                              device=device)
+            buf[slots] = x[live]
+            return buf
+
+        res = al.PairAlignment(*(_scatter(x) for x in res_b))
     return (pair_i, pair_j, pv, strand, li, lj, res, n_live, e_total, bucket,
             align_stats)
 
@@ -386,8 +403,10 @@ def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
         cset = generate_contigs(s_mat, codes, lengths, contained,
                                 backend=backend, distribution=cfg.distribution,
                                 mesh=cfg.mesh, row_axes=cfg.row_axes)
-        contigs = cset.to_contigs()
-        cs = contig_stats(contigs)
+        with span("Contigs.materialize", kind="step",
+                  n_contigs=cset.n_contigs):
+            contigs = cset.to_contigs()
+            cs = contig_stats(contigs)
         sp.set_output(cset.codes)
     metrics.emit("contigs", dataclasses.asdict(cs))
     metrics.emit("n_branch_cut", cset.stats["n_branch_cut"])

@@ -13,7 +13,10 @@ The PyTorch counterpart of ``repro.core.transitive_reduction``:
   graphs wider than ``TR_DENSE_MAX_ROWS`` fall back to the ELL square, and
   ``TRStats.backend`` records the path that ran.
 
-The convergence loop is a host loop: each iteration reads nnz.
+The convergence loop is a host loop: each iteration reads nnz.  Each
+iteration opens two step spans, ``TrReduction.square`` and
+``TrReduction.prune`` (attributes ``iter``, ``path`` — ``"minplus"`` or
+``"ell"`` — and the nnz the loop holds).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Tuple
 
 import torch
 
+from ..obs import span
 from .backend import dispatch, resolve_backend
 from .semiring import INF, MP, minplus_orient_semiring as SR
 from .spgemm import spgemm, spgemm_masked
@@ -76,33 +80,40 @@ def _tr_impl(r: EllMatrix, fuzz: float, *, n_capacity: int, max_iters: int,
     fuzz = torch.tensor(fuzz, dtype=torch.float32, device=r.cols.device)
     nnz0 = int(r.nnz())
     prev, cur, it, ovf = -1, nnz0, 0, 0
+    path = "minplus" if fused and backend == "cuda" else "ell"
     while cur != prev and it < max_iters:
-        v = row_max_suffix(r) + fuzz
-        if fused and backend == "cuda":
-            # dense square on the min-plus kernel, sampled at R's pattern:
-            # absent entries are +inf, the additive identity, so the dense
-            # contraction equals the sampled ELL one
-            minplus = dispatch("minplus_dense", "cuda")
-            dense = r.to_dense(SR)[MP]
-            nd = minplus(dense, dense)
-            n = r.cols.shape[0]
-            safe = torch.where(r.mask, r.cols, 0).to(torch.int64)
-            rows = torch.arange(n, device=r.cols.device)[:, None]
-            vals_at_r = nd[rows, safe]
-            found = r.mask
-            step_ovf = 0
-        elif fused:
-            vals_at_r = spgemm_masked(r, r, r, semiring=SR).vals[MP]
-            found = r.mask
-            step_ovf = 0
-        else:
-            n_full, step_ovf = spgemm(r, r, semiring=SR, capacity=n_capacity)
-            got, found = n_full.lookup(SR, torch.where(r.mask, r.cols, -1))
-            vals_at_r = got[MP]
-            step_ovf = int(step_ovf)
-        trans = _transitive_combos(r, vals_at_r, found, v)
-        r = _prune_combos(r, trans)
-        prev, cur, it, ovf = cur, int(r.nnz()), it + 1, ovf + step_ovf
+        with span("TrReduction.square", kind="step", iter=it, path=path,
+                  nnz=cur):
+            v = row_max_suffix(r) + fuzz
+            if path == "minplus":
+                # dense square on the min-plus kernel, sampled at R's
+                # pattern: absent entries are +inf, the additive identity,
+                # so the dense contraction equals the sampled ELL one
+                minplus = dispatch("minplus_dense", "cuda")
+                dense = r.to_dense(SR)[MP]
+                nd = minplus(dense, dense)
+                n = r.cols.shape[0]
+                safe = torch.where(r.mask, r.cols, 0).to(torch.int64)
+                rows = torch.arange(n, device=r.cols.device)[:, None]
+                vals_at_r = nd[rows, safe]
+                found = r.mask
+                step_ovf = 0
+            elif fused:
+                vals_at_r = spgemm_masked(r, r, r, semiring=SR).vals[MP]
+                found = r.mask
+                step_ovf = 0
+            else:
+                n_full, step_ovf = spgemm(r, r, semiring=SR,
+                                          capacity=n_capacity)
+                got, found = n_full.lookup(SR, torch.where(r.mask, r.cols, -1))
+                vals_at_r = got[MP]
+                step_ovf = int(step_ovf)
+        with span("TrReduction.prune", kind="step", iter=it,
+                  path=path) as sp:
+            trans = _transitive_combos(r, vals_at_r, found, v)
+            r = _prune_combos(r, trans)
+            prev, cur, it, ovf = cur, int(r.nnz()), it + 1, ovf + step_ovf
+            sp.annotate(nnz=cur)
     return r, TRStats(iterations=it, nnz_initial=nnz0, nnz_final=cur,
                       n_overflow=ovf,
                       backend=backend if fused else "reference")

@@ -1,9 +1,13 @@
 """Trace-artifact export: Chrome trace-event / Perfetto JSON.
 
 The port's copy of ``repro.obs.export``: one ``"X"`` complete event per
-span with microsecond ``ts``/``dur`` relative to the tracer epoch and the
-span attributes in ``args``.  All spans share one ``pid``/``tid`` — the
-tracer is host-sequential, so nesting is exactly ts/dur containment.
+span on ``tid`` 0 (the host), with microsecond ``ts``/``dur`` and the span
+attributes in ``args``.  The host spans share that one track — the tracer
+is host-sequential, so nesting is exactly ts/dur containment.  A span with
+a device interval (``Tracer.resolve``) has a second event on ``tid`` 1,
+the ``device`` track.  Times are on ``torch.profiler``'s clock as its own
+export writes them: ``ts`` plus the file's ``baseTimeNanoseconds`` is
+``CLOCK_REALTIME``, so the file lines up with a profile of the same run.
 Beside ``traceEvents`` the file carries a ``spanTree`` key (ignored by
 trace viewers) with the explicit nesting.
 """
@@ -37,22 +41,36 @@ def span_tree(sp: Span) -> Dict[str, Any]:
 
 def to_chrome_trace(tracer: Tracer) -> Dict[str, Any]:
     """The tracer's span forest as a Chrome trace-event JSON object."""
-    events = []
+    base = tracer.anchor[1] // 1000 * 1000  # whole microseconds
+
+    def us(t: float) -> float:
+        return (tracer.clock_ns(t) - base) * 1e-3
+
+    events, device = [], []
     for sp in tracer.spans():
         t1 = sp.t1 if sp.t1 is not None else sp.t0
-        events.append({
+        ev = {
             "name": sp.name,
             "ph": "X",
-            "ts": (sp.t0 - tracer.epoch) * 1e6,
+            "ts": us(sp.t0),
             "dur": max((t1 - sp.t0) * 1e6, 0.001),
             "pid": 0,
             "tid": 0,
             "cat": str(sp.attrs.get("kind", "span")),
             "args": {k: _jsonable(v) for k, v in sp.attrs.items()},
-        })
+        }
+        events.append(ev)
+        if sp.device_s is not None:
+            device.append(dict(ev, ts=us(sp.device_t0),
+                               dur=max(sp.device_s * 1e6, 0.001), tid=1))
+    if device:
+        events += [{"name": "thread_name", "ph": "M", "pid": 0, "tid": tid,
+                    "args": {"name": name}}
+                   for tid, name in ((0, "host"), (1, "device"))] + device
     return {
         "traceEvents": events,
         "displayTimeUnit": "ms",
+        "baseTimeNanoseconds": base,
         "spanTree": [span_tree(r) for r in tracer.roots],
     }
 

@@ -21,8 +21,11 @@ consumer.
   continuous.
 * ``obs.trace.span`` samples the tracer's ``device`` on enter and exit
   while a memory-enabled tracer is active and attaches ``peak_hbm_bytes``
-  / ``hbm_bytes_in_use`` / ``hbm_delta_bytes`` / ``hbm_source`` to the
-  span.
+  (the traced region's peak up to the span's close) /
+  ``own_peak_hbm_bytes`` (the span's own) / ``hbm_bytes_in_use`` /
+  ``hbm_delta_bytes`` / ``hbm_source`` to the span.  On a CUDA device the
+  span resets the allocator's peak after its enter sample has folded into
+  every open window, so every window still sees every peak.
 
 The windows open on a thread are a per-thread stack: a sample folds into
 the calling thread's windows only.
@@ -33,6 +36,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import itertools
 import threading
 from typing import Iterator, List, Optional
 
@@ -66,10 +70,14 @@ def _live_buffer_bytes() -> int:
     fallback), each storage counted once."""
     seen = set()
     total = 0
-    for obj in gc.get_objects():
-        # type(), not isinstance(): the latter reads __class__, which some
-        # deprecated module proxies answer with a warning
-        if not issubclass(type(obj), torch.Tensor) or obj.device.type == "meta":
+    objs = gc.get_objects()
+    # type(), not isinstance(): the latter reads __class__, which some
+    # deprecated module proxies answer with a warning.  The tensor types
+    # are found once among the distinct types and the objects picked in C:
+    # a traced CPU run scans at every span boundary
+    kinds = {t for t in set(map(type, objs)) if issubclass(t, torch.Tensor)}
+    for obj in itertools.compress(objs, map(kinds.__contains__, map(type, objs))):
+        if obj.device.type == "meta":
             continue
         try:
             st = obj.untyped_storage()

@@ -7,20 +7,34 @@ The port's copy of ``repro.obs.trace`` and its one timing code path: a
 * synchronises on exit the CUDA device of every tensor handed to
   :meth:`Span.set_output`, so a stage span measures execution and not only
   the enqueue of its kernels; :func:`sync` descends dataclasses (``EllMatrix``,
-  ``ContigSet``, ``ConsensusResult``), lists, tuples and dicts;
+  ``ContigSet``, ``ConsensusResult``), lists, tuples and dicts.  The span
+  drops the reference once it has synchronised, so a recorded span keeps
+  no tensor alive;
 * nests: spans opened while another is live become its children, so a
-  pipeline run produces a tree — stages → shard_map phases → ``op:<name>``
-  dispatches → kernel launches.  PyTorch runs eagerly, so every call opens
-  its spans (JAX emits the spans inside a jitted function at trace time
-  only);
+  pipeline run produces a tree — stages → steps (``kind="step"``, named
+  ``<Stage>.<step>``, never synchronising) and shard_map phases →
+  ``op:<name>`` dispatches → kernel launches.  PyTorch runs eagerly, so
+  every call opens its spans (JAX emits the spans inside a jitted function
+  at trace time only);
 * with ``Tracer(annotate=True)`` wraps every span in a
-  ``torch.profiler.record_function`` range, so a ``torch.profiler``
-  capture of the same region shows the same tree (and, under
-  ``torch.autograd.profiler.emit_nvtx``, so does an Nsight capture).
+  ``torch.profiler.record_function`` range named by :attr:`Span.label`
+  (``<name>.<phase>`` for a phase span, else the name), so a
+  ``torch.profiler`` capture of the same region shows the same tree (and,
+  under ``torch.autograd.profiler.emit_nvtx``, so does an Nsight capture).
+
+Under an active :class:`Tracer` on a CUDA device each span also records a
+``torch.cuda.Event`` on the current stream at its open and its close, and
+under a memory-enabled one it resets the allocator's peak on opening, so
+the span knows its own peak (``own_peak_hbm_bytes``).
+:meth:`Tracer.resolve` turns the events into each span's device interval
+on the host clock; :meth:`Tracer.clock_ns` puts host times on the clock
+``torch.profiler`` stamps its CPU events with (``CLOCK_REALTIME``: a
+profile's ``ts`` plus its ``baseTimeNanoseconds``).
 
 Spans work with or without an active :class:`Tracer`: without one they
-still time and synchronise, they are just not recorded.  Activate a tracer
-for a region with :func:`tracing`; export the tree with ``obs.export``.
+still time and synchronise, they are just not recorded, and they record
+no event and reset no peak.  Activate a tracer for a region with
+:func:`tracing`; export the tree with ``obs.export``.
 """
 
 from __future__ import annotations
@@ -28,7 +42,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -66,14 +80,20 @@ def sync(out: Any) -> Any:
 
 @dataclasses.dataclass
 class Span:
-    """One timed region: name, free-form attributes, wall-clock interval and
-    child spans (populated when a :class:`Tracer` is active)."""
+    """One timed region: name, free-form attributes, wall-clock interval,
+    device interval (set by :meth:`Tracer.resolve`) and child spans
+    (populated when a :class:`Tracer` is active)."""
 
     name: str
     attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
     t0: float = 0.0
     t1: Optional[float] = None
     children: List["Span"] = dataclasses.field(default_factory=list)
+    # the device's interval on the ``perf_counter`` clock of t0/t1: the
+    # work the device ran between the span's open and close (on the CPU,
+    # the host interval)
+    device_t0: Optional[float] = None
+    device_t1: Optional[float] = None
     _out: Any = dataclasses.field(default=None, repr=False)
 
     def set_output(self, out: Any) -> Any:
@@ -87,6 +107,15 @@ class Span:
         self.attrs.update(attrs)
 
     @property
+    def label(self) -> str:
+        """``<name>.<phase>`` for a phase span, else the name: the name of
+        its profiler range and of its row in :meth:`Tracer.summary`."""
+        phase = self.attrs.get("phase")
+        if self.attrs.get("kind") == "phase" and phase is not None:
+            return f"{self.name}.{phase}"
+        return self.name
+
+    @property
     def duration_s(self) -> float:
         """Span wall-clock in seconds (0.0 while still open)."""
         return 0.0 if self.t1 is None else self.t1 - self.t0
@@ -96,11 +125,28 @@ class Span:
         """Span wall-clock in milliseconds (0.0 while still open)."""
         return self.duration_s * 1e3
 
+    @property
+    def device_s(self) -> Optional[float]:
+        """The device interval's seconds (None before it is resolved)."""
+        if self.device_t0 is None or self.device_t1 is None:
+            return None
+        return self.device_t1 - self.device_t0
+
     def walk(self) -> Iterator["Span"]:
         """Yield this span and every descendant, depth-first preorder."""
         yield self
         for child in self.children:
             yield from child.walk()
+
+
+_LAST_SUMMARY: Optional[Dict[str, Dict[str, Any]]] = None
+
+
+def last_summary() -> Optional[Dict[str, Dict[str, Any]]]:
+    """The :meth:`Tracer.summary` of the tracer this process resolved last
+    (None before any): plain numbers, for a reader that runs after the
+    traced result is gone."""
+    return _LAST_SUMMARY
 
 
 class Tracer:
@@ -110,9 +156,15 @@ class Tracer:
     ``torch.profiler.record_function`` range.  ``memory=True`` (the
     default) samples the memory of ``device`` (``obs.memory.sample``: the
     allocator's stats of a CUDA device, the live tensors' bytes for the CPU
-    or None) on every span boundary and attaches ``peak_hbm_bytes`` /
-    ``hbm_bytes_in_use`` / ``hbm_delta_bytes`` / ``hbm_source`` to each
-    span."""
+    or None) on every span boundary and attaches ``peak_hbm_bytes`` (the
+    peak of the traced region up to the span's close) /
+    ``own_peak_hbm_bytes`` (the peak between the span's open and close,
+    children included) / ``hbm_bytes_in_use`` / ``hbm_delta_bytes`` /
+    ``hbm_source`` to each span (off a CUDA device, to each span but the
+    steps).  On a CUDA device a span's opening resets
+    the allocator's peak (after folding its enter sample into every open
+    window), so ``torch.cuda.max_memory_allocated`` reads the peak since the
+    last span opened while the tracer is active."""
 
     def __init__(self, annotate: bool = False, memory: bool = True,
                  device=None):
@@ -121,7 +173,95 @@ class Tracer:
         self.annotate = annotate
         self.memory = memory
         self.device = device
-        self.epoch = time.perf_counter()
+        self.cuda = device is not None and torch.device(device).type == "cuda"
+        # the running maximum of every memory sample the spans took
+        self.peak_hbm_bytes = 0
+        # (perf_counter s, CLOCK_REALTIME ns), read back to back
+        wall = time.time_ns()
+        self.anchor: Tuple[float, int] = (time.perf_counter(), wall)
+        self._activated = False
+        self._device_anchor: Optional[Tuple[Any, float]] = None
+        self._events: List[Tuple[Span, Any, Any]] = []
+
+    def clock_ns(self, t: float) -> int:
+        """A ``perf_counter`` time on ``torch.profiler``'s clock:
+        ``CLOCK_REALTIME`` nanoseconds."""
+        pc, wall = self.anchor
+        return wall + round((t - pc) * 1e9)
+
+    def _activate(self) -> None:
+        """On first activation: the host anchor pair and, on a CUDA device,
+        one event recorded right after a synchronise, whose host time
+        anchors every span's event; with ``annotate`` the anchor is a
+        profiler range of its own (``trace.anchor``), which also takes a
+        profiling session's first-range costs out of the spans' ranges."""
+        if self._activated:
+            return
+        self._activated = True
+        ann = None
+        if self.annotate:
+            ann = torch.profiler.record_function("trace.anchor")
+            ann.__enter__()
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
+            ev = torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            ev.record(torch.cuda.current_stream(self.device))
+            ev.synchronize()
+            self._device_anchor = (ev, 0.5 * (h0 + time.perf_counter()))
+        wall = time.time_ns()
+        self.anchor = (time.perf_counter(), wall)
+        if ann is not None:
+            ann.__exit__(None, None, None)
+
+    def _event(self):
+        """An event recorded now on the device's current stream (None off
+        a CUDA device)."""
+        if not self.cuda:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _samples(self, sp: Span) -> bool:
+        """Whether ``sp`` takes memory samples: every span on a CUDA device;
+        off it, every span but the steps, since the live-tensor scan walks
+        every Python object at each boundary."""
+        return self.memory and (self.cuda or sp.attrs.get("kind") != "step")
+
+    def _open_memory(self):
+        """The enter sample, folded into every window open, then a reset
+        of the allocator's peak; returns the span's window (None if the
+        sample failed: the span runs without memory attributes)."""
+        from . import memory as _memory
+
+        try:
+            enter = _memory.sample(self.device)
+        except Exception:
+            return None  # telemetry must not kill the span
+        self.peak_hbm_bytes = max(self.peak_hbm_bytes, enter.peak_bytes)
+        if self.cuda:
+            torch.cuda.reset_peak_memory_stats(self.device)
+        wm = _memory.Watermark(enter=enter, peak_hbm_bytes=enter.bytes_in_use,
+                               source=enter.source)
+        _memory._open_watermarks().append(wm)
+        return wm
+
+    def _close_memory(self, sp: Span, wm) -> None:
+        from . import memory as _memory
+
+        try:
+            wm.exit = _memory.sample(self.device)
+        except Exception:
+            pass  # exit attributes degrade to the enter-side numbers
+        finally:
+            _memory._open_watermarks().remove(wm)
+        self.peak_hbm_bytes = max(self.peak_hbm_bytes, wm.peak_hbm_bytes)
+        sp.attrs.setdefault("peak_hbm_bytes", self.peak_hbm_bytes)
+        sp.attrs.setdefault("own_peak_hbm_bytes", wm.peak_hbm_bytes)
+        sp.attrs.setdefault("hbm_bytes_in_use", wm.hbm_bytes_in_use)
+        sp.attrs.setdefault("hbm_delta_bytes", wm.delta_bytes)
+        sp.attrs.setdefault("hbm_source", wm.source)
 
     def _push(self, sp: Span) -> None:
         (self._stack[-1].children if self._stack else self.roots).append(sp)
@@ -140,6 +280,45 @@ class Tracer:
         """All recorded spans with the given name."""
         return [sp for sp in self.spans() if sp.name == name]
 
+    def resolve(self) -> None:
+        """Give every closed span its device interval: on a CUDA device
+        wait for the recorded events and place each on the host clock
+        through the anchor event; elsewhere the device interval is the host
+        interval.  Drops the events, and publishes :meth:`summary` as
+        :func:`last_summary`.  Call it once the traced work is done."""
+        global _LAST_SUMMARY
+        if self._events:
+            torch.cuda.synchronize(self.device)
+            ev_a, h_a = self._device_anchor
+            for sp, e0, e1 in self._events:
+                sp.device_t0 = h_a + ev_a.elapsed_time(e0) * 1e-3
+                sp.device_t1 = h_a + ev_a.elapsed_time(e1) * 1e-3
+            self._events = []
+        elif not self.cuda:
+            for sp in self.spans():
+                if sp.t1 is not None:
+                    sp.device_t0, sp.device_t1 = sp.t0, sp.t1
+        _LAST_SUMMARY = self.summary()
+
+    def summary(self) -> Dict[str, Dict[str, Any]]:
+        """By label: ``count``, ``host_s`` and ``device_s`` summed over the
+        spans of that label (``device_s`` None where none was resolved),
+        and the largest ``own_peak_hbm_bytes`` (None without memory)."""
+        out: Dict[str, Dict[str, Any]] = {}
+        for sp in self.spans():
+            row = out.setdefault(sp.label, {
+                "count": 0, "host_s": 0.0, "device_s": None,
+                "own_peak_hbm_bytes": None})
+            row["count"] += 1
+            row["host_s"] += sp.duration_s
+            if sp.device_s is not None:
+                row["device_s"] = (row["device_s"] or 0.0) + sp.device_s
+            own = sp.attrs.get("own_peak_hbm_bytes")
+            if own is not None:
+                row["own_peak_hbm_bytes"] = max(row["own_peak_hbm_bytes"] or 0,
+                                                int(own))
+        return out
+
 
 _ACTIVE: Optional[Tracer] = None
 
@@ -155,6 +334,8 @@ def tracing(tracer: Optional[Tracer]):
     runs untraced: spans still time and synchronise)."""
     global _ACTIVE
     prev = _ACTIVE
+    if tracer is not None:
+        tracer._activate()
     _ACTIVE = tracer
     try:
         yield tracer
@@ -171,47 +352,39 @@ def span(name: str, **attrs: Any):
     tracer is active — records itself under the enclosing span."""
     tracer = _ACTIVE
     sp = Span(name=name, attrs=dict(attrs))
+    if tracer is None:
+        sp.t0 = time.perf_counter()
+        try:
+            yield sp
+        finally:
+            sync(sp._out)
+            sp._out = None
+            sp.t1 = time.perf_counter()
+        return
+    tracer._push(sp)
+    wm = tracer._open_memory() if tracer._samples(sp) else None
     ann = None
-    wm = None
-    if tracer is not None:
-        tracer._push(sp)
-        if tracer.annotate:
-            ann = torch.profiler.record_function(name)
-            ann.__enter__()
-        if tracer.memory:
-            from . import memory as _memory
-
-            wm = _memory.Watermark()
-            opened = _memory._open_watermarks()
-            opened.append(wm)
-            try:
-                wm.enter = _memory.sample(tracer.device)
-            except Exception:
-                # telemetry must not kill the span, and a failed enter
-                # sample must not leave the window registered (every later
-                # sample would fold into it): run without memory attributes
-                opened.remove(wm)
-                wm = None
+    if tracer.annotate:
+        ann = torch.profiler.record_function(sp.label)
+        ann.__enter__()
+    # the host interval opens right after the profiler range opens and
+    # closes right after it closes: record_function stamps a range's start
+    # and end nearest to those
     sp.t0 = time.perf_counter()
+    ev0 = tracer._event()
     try:
         yield sp
     finally:
-        sync(sp._out)
-        sp.t1 = time.perf_counter()
-        if wm is not None:
-            from . import memory as _memory
-
-            try:
-                wm.exit = _memory.sample(tracer.device)
-            except Exception:
-                pass  # exit attributes degrade to the enter-side numbers
-            finally:
-                _memory._open_watermarks().remove(wm)
-            sp.attrs.setdefault("peak_hbm_bytes", wm.peak_hbm_bytes)
-            sp.attrs.setdefault("hbm_bytes_in_use", wm.hbm_bytes_in_use)
-            sp.attrs.setdefault("hbm_delta_bytes", wm.delta_bytes)
-            sp.attrs.setdefault("hbm_source", wm.source)
-        if ann is not None:
-            ann.__exit__(None, None, None)
-        if tracer is not None:
+        try:
+            sync(sp._out)
+            sp._out = None
+            ev1 = tracer._event()
+            if ev0 is not None:
+                tracer._events.append((sp, ev0, ev1))
+            if ann is not None:
+                ann.__exit__(None, None, None)
+            sp.t1 = time.perf_counter()
+        finally:
+            if wm is not None:
+                tracer._close_memory(sp, wm)
             tracer._pop(sp)

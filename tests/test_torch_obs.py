@@ -294,11 +294,16 @@ def _reads():
 def traced_runs():
     rs = _reads()
     out = {}
-    for b in ("reference", "cuda"):
-        cfg = PipelineConfig(backend=b, device="cpu")
-        out[b] = (assemble(rs.codes, rs.lengths, cfg),
-                  assemble(rs.codes, rs.lengths,
-                           dataclasses.replace(cfg, trace=True)))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # small ops: a thread pool only contends
+    try:
+        for b in ("reference", "cuda"):
+            cfg = PipelineConfig(backend=b, device="cpu")
+            out[b] = (assemble(rs.codes, rs.lengths, cfg),
+                      assemble(rs.codes, rs.lengths,
+                               dataclasses.replace(cfg, trace=True)))
+    finally:
+        torch.set_num_threads(threads)
     jres = j_assemble(rs.codes, rs.lengths, JConfig(backend="reference",
                                                     trace=True))
     return out, jres
@@ -362,26 +367,53 @@ def test_chrome_trace_of_a_traced_run_loads(traced_runs, tmp_path):
     tr = traced_runs[0]["cuda"][1].trace
     doc = json.loads(open(write_chrome_trace(tr, str(tmp_path / "run.json"))).read())
     assert [n["name"] for n in doc["spanTree"]] == STAGES
-    assert len(doc["traceEvents"]) == len(list(tr.spans()))
-    assert all(e["dur"] > 0 for e in doc["traceEvents"])
+    # one host event a span on tid 0; a resolved span (on the CPU, every
+    # one) has its device interval on tid 1 besides
+    host = [e for e in doc["traceEvents"] if e["ph"] == "X" and e["tid"] == 0]
+    assert len(host) == len(list(tr.spans()))
+    device = [e for e in doc["traceEvents"] if e["ph"] == "X" and e["tid"] == 1]
+    assert len(device) == sum(sp.device_s is not None for sp in tr.spans())
+    assert all(e["dur"] > 0 for e in host + device)
 
 
 def test_shard_map_phase_spans_carry_jax_phase_names():
     """The shard_map path (one process: a 1×1 grid) opens the phase spans
     JAX's ``core/summa.py``, ``core/align_dist.py`` and
     ``core/components_dist.py`` open, with the same names and ``phase``
-    values."""
+    values; their labels are ``<name>.<phase>``, and they run inside their
+    stage's steps."""
     jax_phases = _jax_span_names(["core/summa.py", "core/align_dist.py",
                                   "core/components_dist.py"], None)
     jax_phases = {p for p in jax_phases if p[0] != "kernel_launch"}
     rs = _reads()
     cfg = PipelineConfig(backend="cuda", device="cpu",
                          distribution="shard_map", trace=True, polish=False)
-    res = assemble(rs.codes, rs.lengths, cfg)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # small ops: a thread pool only contends
+    try:
+        res = assemble(rs.codes, rs.lengths, cfg)
+    finally:
+        torch.set_num_threads(threads)
     got = {(sp.name, sp.attrs["phase"]) for sp in res.trace.spans()
            if sp.attrs.get("kind") == "phase"}
     assert got == jax_phases
     for sp in res.trace.spans():
-        if sp.attrs.get("kind") == "phase":
+        if sp.attrs.get("kind") in ("phase", "step"):
             stage = next(r for r in res.trace.roots if sp in list(r.walk()))
+            assert sp.label.split(".")[0] == stage.name
+        if sp.attrs.get("kind") == "phase":
             assert stage.name == sp.name
+            assert sp.label == f"{sp.name}.{sp.attrs['phase']}"
+    # the phases run inside the steps, and SpGEMM's give the labels the
+    # benchmark reads (step_s.SpGEMM.*)
+    labels = set(res.trace.summary())
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    spgemm = {m["name"][len("step_s."):] for m in bench["per_layer"]
+              if m["name"].startswith("step_s.SpGEMM.")}
+    assert spgemm == {"SpGEMM.distribute", "SpGEMM.ring",
+                      "SpGEMM.collect_merge"} and spgemm <= labels
+    (xdrop,) = res.trace.find("Alignment.xdrop")
+    assert {sp.label for sp in xdrop.walk()} >= {"Alignment.pair_exchange",
+                                                 "Alignment.extend"}
+    (chains,) = res.trace.find("Contigs.chains")
+    assert "Contigs.chain_stage" in {sp.label for sp in chains.walk()}
