@@ -72,19 +72,19 @@ def count_and_select(kmers: dict, *, lower: int = 2, upper: int = 8) -> KmerCoun
         order = torch.sort((hik << 31) | lok, stable=True).indices
         hs, ls, vs = hik[order], lok[order], valid[order]
 
-    with span("CountKmer.runs", kind="step", instances=e):
+    with span("CountKmer.runs", kind="step", instances=e) as sp:
         new_run = torch.ones(e, dtype=torch.bool, device=dev)
         new_run[1:] = (hs[1:] != hs[:-1]) | (ls[1:] != ls[:-1])
         idx = torch.arange(e, dtype=torch.int64, device=dev)
-        run_start = torch.cummax(torch.where(new_run, idx, -1), 0).values
-        next_new = torch.ones(e, dtype=torch.bool, device=dev)
-        next_new[:-1] = new_run[1:]
-        run_end = torch.flip(
-            torch.cummin(torch.flip(torch.where(next_new, idx, e), (0,)),
-                         0).values,
-            (0,),
-        )
-        count_s = torch.where(vs, run_end - run_start + 1, 0).to(torch.int32)
+        # each instance's count is its run's length: the run starts (one
+        # host sync) give the lengths, a device-wide prefix sum of the
+        # starts gives each instance's run
+        starts = torch.nonzero(new_run).squeeze(1)
+        sp.annotate(runs=starts.numel())
+        lens = torch.diff(starts, append=starts.new_full((1,), e))
+        run_id = torch.cumsum(new_run, 0, dtype=torch.int32) - 1
+        count_s = lens.to(torch.int32).index_select(0, run_id)
+        count_s = torch.where(vs, count_s, 0)
 
     with span("CountKmer.select", kind="step", instances=e):
         reliable_s = vs & (count_s >= lower) & (count_s <= upper)

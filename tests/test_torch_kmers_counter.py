@@ -95,3 +95,86 @@ def test_count_and_build_match_jax(lower, upper):
         assert jm.n_cols == tm.n_cols
     assert int(ja[2]) == int(ta[2]) and int(ja[3]) == int(ta[3])
     jax.clear_caches()
+
+
+def _kmer_dict(keys, valid, shape):
+    """A ``extract_kmers`` dict of the given shape whose instance i (in
+    row-major order) has packed k-mer ``keys[i]`` (hi = key >> 15, lo = the
+    low 15 bits) and validity ``valid[i]``; invalid instances carry
+    arbitrary words, as padding does."""
+    n, p = shape
+    keys = np.asarray(keys, np.int64).reshape(n, p)
+    rng = np.random.default_rng(int(keys.sum()) % 1000)
+    return {
+        "hi": (keys >> 15).astype(np.int32),
+        "lo": (keys & 0x7FFF).astype(np.int32),
+        "strand": rng.integers(0, 2, (n, p)).astype(np.int32),
+        "pos": np.broadcast_to(np.arange(p, dtype=np.int32), (n, p)).copy(),
+        "valid": np.asarray(valid, bool).reshape(n, p),
+    }
+
+
+def _run_structure(case, lower, upper):
+    """(keys, valid, shape) of a run structure that random reads rarely
+    give."""
+    rng = np.random.default_rng(len(case) + 7 * lower + upper)
+    if case == "one_instance":
+        return [12345], [True], (1, 1)
+    if case == "one_invalid_instance":
+        return [12345], [False], (1, 1)
+    if case == "all_invalid":
+        return rng.integers(0, 1 << 29, 24), np.zeros(24, bool), (4, 6)
+    if case == "one_kmer":
+        # one run over every valid instance, then the padding run
+        valid = np.arange(30) % 6 < 4
+        return np.full(30, 777), valid, (5, 6)
+    if case == "one_kmer_no_padding":
+        return np.full(12, 1 << 20), np.ones(12, bool), (3, 4)
+    if case == "all_distinct":
+        keys = rng.permutation(1 << 12)[:40] * 4099
+        return keys, np.ones(40, bool), (5, 8)
+    if case == "window_edges":
+        # k-mers counted exactly lower - 1, lower, upper and upper + 1
+        # times (and once and twice above), shuffled, with invalid
+        # instances of a valid key among them
+        mult = [lower - 1, lower, upper, upper + 1, 1, upper + 2]
+        keys = np.concatenate([np.full(m, 1000 + 37 * i)
+                               for i, m in enumerate(mult)])
+        pad = np.full(7, 1000 + 37 * 2)
+        keys = np.concatenate([keys, pad])
+        valid = np.concatenate([np.ones(sum(mult), bool), np.zeros(7, bool)])
+        perm = rng.permutation(len(keys))
+        keys, valid = keys[perm], valid[perm]
+        extra = (-len(keys)) % 5
+        keys = np.concatenate([keys, np.zeros(extra, np.int64)])
+        valid = np.concatenate([valid, np.zeros(extra, bool)])
+        return keys, valid, (len(keys) // 5, 5)
+    raise ValueError(case)
+
+
+CASES = ["one_instance", "one_invalid_instance", "all_invalid", "one_kmer",
+         "one_kmer_no_padding", "all_distinct", "window_edges"]
+
+
+@pytest.mark.parametrize("lower,upper", [(2, 8), (3, 5)])
+@pytest.mark.parametrize("case", CASES)
+def test_count_and_select_run_structures_match_jax(case, lower, upper):
+    """Run structures the random reads rarely give: a single instance, no
+    valid instance, one run over the whole valid range, all distinct
+    k-mers and counts at both edges of the reliable window.  Every field
+    equals JAX's."""
+    keys, valid, shape = _run_structure(case, lower, upper)
+    km = _kmer_dict(keys, valid, shape)
+    jcnt = jc.count_and_select({k: jnp.asarray(v) for k, v in km.items()},
+                               lower=lower, upper=upper)
+    tcnt = tc.count_and_select({k: torch.from_numpy(v) for k, v in km.items()},
+                               lower=lower, upper=upper)
+    for f in jc.KmerCount._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(jcnt, f)),
+                                      getattr(tcnt, f).numpy(), f)
+        assert getattr(tcnt, f).dtype in (torch.int32, torch.bool), f
+    if case == "window_edges":
+        counts = set(tcnt.count[tcnt.reliable].tolist())
+        assert counts == {lower, upper}
+        assert int(tcnt.m_reliable) == 2
+    jax.clear_caches()

@@ -27,6 +27,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro.assembly.simulate import simulate_genome, simulate_reads
+from repro_torch.assembly.counter import count_and_select
+from repro_torch.assembly.kmers import extract_kmers
 from repro_torch.assembly.pipeline import PipelineConfig, assemble
 from repro_torch.core.spmat import ell_equal
 from repro_torch.obs import (
@@ -156,6 +158,37 @@ def test_step_attributes_are_the_host_counts(runs):
     (mat,) = tr.find("Contigs.materialize")
     (gat,) = tr.find("Contigs.gather")
     assert mat.attrs["n_contigs"] == gat.attrs["n_contigs"] == len(res.contigs)
+
+
+@pytest.mark.parametrize("source", ["assemble", "all_valid", "some_invalid"])
+def test_runs_step_counts_the_runs(runs, source):
+    """``CountKmer.runs`` carries ``runs``, the number of runs of the
+    sorted instances: one a distinct valid k-mer, and one more for the
+    invalid instances' sentinel when there are any."""
+    if source == "assemble":
+        rs = runs["reads"]
+        (sp,) = runs["traced"].trace.find("CountKmer.runs")
+        n_unique = runs["traced"].stats["n_unique_kmers"]
+        cfg = PipelineConfig(device="cpu")
+        valid = extract_kmers(torch.from_numpy(np.asarray(rs.codes)),
+                              torch.from_numpy(np.asarray(rs.lengths)),
+                              k=cfg.k)["valid"]
+        assert not bool(valid.all())  # the reads' lengths differ
+    else:
+        rng = np.random.default_rng(11)
+        keys = torch.from_numpy(rng.integers(0, 40, (6, 9)).astype(np.int32))
+        valid = torch.ones(6, 9, dtype=torch.bool)
+        if source == "some_invalid":
+            valid[:, 7:] = False
+        kmers = {"hi": keys, "lo": keys * 3, "strand": torch.zeros_like(keys),
+                 "pos": torch.zeros_like(keys), "valid": valid}
+        with tracing(Tracer(device="cpu", memory=False)) as tr:
+            kc = count_and_select(kmers)
+        (sp,) = tr.find("CountKmer.runs")
+        n_unique = int(kc.n_unique)
+        assert n_unique == len(set(keys[valid].tolist()))
+    assert sp.attrs["runs"] == n_unique + int(not bool(valid.all()))
+    assert type(sp.attrs["runs"]) is int
 
 
 def test_benchmark_names_every_step_span(runs):
