@@ -26,7 +26,8 @@ rank.  Rank 0 prints one JSON line per grid: the run's wall time, each
 stage's time, the exchange time (the host time inside the grid's
 collectives, each bracketed by a device synchronise, so compute is not
 counted in it), the collectives' bytes by op beside the stats'
-``exchange_words_*`` and ``exchange_rounds_*``, and every rank's
+``exchange_words_*``, ``exchange_rounds_*`` and ``tr_exchange_*``, the TR
+path that ran (``tr_backend``), and every rank's
 allocator peak (the one-card run's beside it).  The first line is the
 cards' names and power limits.  Exits non-zero on any difference, and
 without four cards (unless ``--device cpu``).
@@ -81,15 +82,17 @@ def timed_collectives(grid, device):
 
 
 def same(a, b, label):
-    """Raise unless two ``assemble`` results agree (R, S, stats but SKIP
-    and exchange keys, polished contigs)."""
+    """Raise unless two ``assemble`` results agree (R, S, stats but SKIP,
+    exchange and ``PORT_ONLY`` keys, polished contigs)."""
     import numpy as np
     from repro_torch.core.spmat import ell_equal
+    from repro_torch.obs.schema import PORT_ONLY
 
     if not (ell_equal(a.r_graph, b.r_graph) and ell_equal(a.s_graph,
                                                            b.s_graph)):
         raise AssertionError(f"{label}: R or S differs from one card's")
-    diff = [k for k in a.stats if k not in SKIP
+    # PORT_ONLY: the grid TR's exchange counts, which one card has not
+    diff = [k for k in a.stats if k not in SKIP + PORT_ONLY
             and not k.startswith("exchange_") and a.stats[k] != b.stats.get(k)]
     if diff:
         raise AssertionError(f"{label}: stats differ from one card's: {diff}")
@@ -160,8 +163,9 @@ def worker(rank, args, port):
                     "exchange_s": spent,
                     "collective_bytes": grid.reset_collective_bytes(),
                     "summa_algorithm": st["summa_algorithm"],
+                    "tr_backend": st["tr_backend"],
                     **{k: v for k, v in st.items()
-                       if k.startswith("exchange_")},
+                       if k.startswith(("exchange_", "tr_exchange_"))},
                     "peak_hbm_bytes_by_rank": peaks,
                     "one_card_peak_hbm_bytes": one.stats["peak_hbm_bytes"],
                     "equal_to_one_card": True}), flush=True)

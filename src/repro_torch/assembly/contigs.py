@@ -64,21 +64,37 @@ def _oriented(codes_row: np.ndarray, length: int, strand: int) -> np.ndarray:
     return (3 - r[::-1]) if strand else r
 
 
+def _live_bases(codes, lens: np.ndarray) -> np.ndarray:
+    """The first ``lens[i]`` bases of rows ``0 .. len(lens) - 1`` of
+    ``codes``, concatenated, as a host array: gathered where ``codes``
+    lies and brought to the host in one transfer of the live bases alone,
+    not of the padded rows."""
+    codes = torch.as_tensor(codes)
+    dev = codes.device
+    ln = torch.from_numpy(lens).to(dev)
+    total = int(lens.sum())
+    rows = torch.repeat_interleave(torch.arange(len(lens), device=dev), ln,
+                                   output_size=total)
+    starts = torch.cumsum(ln, 0) - ln
+    cols = torch.arange(total, device=dev) - starts[rows]
+    return codes[rows, cols].cpu().numpy()
+
+
 def materialize_rows(codes, lengths, states, n_contigs: int) -> List[Contig]:
     """Rows of ``codes``/``lengths`` with their ``states`` chains (−1
     padded) as ``Contig`` records — shared by the draft ``ContigSet`` and
-    the polished ``ConsensusResult``."""
-    codes = _np(codes)
-    lens = _np(lengths)
-    states = _np(states)
+    the polished ``ConsensusResult``.  Only the first ``n_contigs`` rows
+    and their live bases reach the host; each record's codes are its slice
+    of the one array of live bases."""
+    lens = _np(lengths[:n_contigs]).astype(np.int64)
+    flat = _live_bases(codes, lens)
+    states = _np(states[:n_contigs])
+    ends = np.cumsum(lens).tolist()
     out: List[Contig] = []
-    for i in range(n_contigs):
-        ss = states[i][states[i] >= 0]
-        out.append(Contig(
-            reads=[(int(s) >> 1, int(s) & 1) for s in ss],
-            length=int(lens[i]),
-            codes=codes[i, : lens[i]].copy(),
-        ))
+    for row, ln, end in zip(states, lens.tolist(), ends):
+        ss = row[row >= 0].tolist()
+        out.append(Contig(reads=[(s >> 1, s & 1) for s in ss], length=ln,
+                          codes=flat[end - ln:end]))
     return out
 
 

@@ -24,9 +24,13 @@ and the P×1 grid for the other two, as JAX's default meshes.  The grid rows
 of all three lie on ``cfg.row_axes``: by default the grid's ``("pod",
 "data")`` axes, as JAX's ``infer_row_axes`` (on both axes the ring SUMMA
 takes its recorded all-gather fallback, as in JAX); ``("data",)`` on a
-pod grid leaves the pods as replicas.  Every rank calls ``assemble`` on the same reads and gets the same
-result; without a process group the grid is 1×1.  As in JAX, TrReduction
-stays local.
+pod grid leaves the pods as replicas.  Every rank calls ``assemble`` on
+the same reads and gets the same result; without a process group the grid
+is 1×1.  On a grid of more than one rank TrReduction runs Algorithm 2 on
+the grid too (``core/summa.transitive_reduction_shard_map``: R in blocks,
+the N = R² square on the ring, the row max over the grid row, the prune
+local), with the same S as the local TR; on one rank it stays local, as
+in JAX.
 
 Each stage is an ``obs.span``: ``AssemblyResult.timings`` holds the stage
 spans' durations, and ``trace=True`` keeps the span tree (stages → steps
@@ -43,6 +47,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -53,7 +58,10 @@ from ..core.grid import resolve_grid, resolve_row_axes
 from ..core.semiring import overlap_semiring
 from ..core.spgemm import spgemm
 from ..core.spmat import fill_pad_rows, map_row_blocks, next_pow2
-from ..core.summa import overlap_spgemm_shard_map
+from ..core.summa import (
+    overlap_spgemm_shard_map,
+    transitive_reduction_shard_map,
+)
 from ..core.string_graph import (
     build_overlap_graph,
     classify_overlaps,
@@ -142,6 +150,11 @@ class AssemblyResult:
     def polished_contigs(self) -> list:
         """Consensus-polished contigs (the draft when polish is off)."""
         return self.consensus.to_contigs() if self.consensus else self.contigs
+
+
+def _grid_ranks(cfg: PipelineConfig) -> int:
+    """The ranks of the grid the shard_map stages run on."""
+    return math.prod(resolve_grid(cfg.mesh, "square").sizes)
 
 
 def _check_supported(cfg: PipelineConfig) -> None:
@@ -384,17 +397,26 @@ def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
     metrics.emit("r_density", metrics["nnz_R"] / max(1, int(n)))
     metrics.emit("n_contained", int(torch.sum(contained)))
 
-    # --- TrReduction: Algorithm 2 ---
+    # --- TrReduction: Algorithm 2 (on the grid where it has several ranks)
     with _tic(timings, "TrReduction") as sp:
-        tr = transitive_reduction_fused if cfg.fused_tr else transitive_reduction
-        s_mat, tr_stats = tr(r_mat, fuzz=cfg.tr_fuzz,
-                             max_iters=cfg.tr_max_iters, backend=backend)
+        tr_exchange = {}
+        if shard_map and _grid_ranks(cfg) > 1:
+            s_mat, tr_stats, tr_exchange = transitive_reduction_shard_map(
+                r_mat, fuzz=cfg.tr_fuzz, max_iters=cfg.tr_max_iters,
+                mesh=cfg.mesh, row_axes=cfg.row_axes, backend=backend)
+        else:
+            tr = (transitive_reduction_fused if cfg.fused_tr
+                  else transitive_reduction)
+            s_mat, tr_stats = tr(r_mat, fuzz=cfg.tr_fuzz,
+                                 max_iters=cfg.tr_max_iters, backend=backend)
         sp.set_output(s_mat.cols)
     metrics.emit("tr_iterations", int(tr_stats.iterations))
     # the path that ran: the fused variant downgrades "cuda" to the ELL
-    # square above TR_DENSE_MAX_ROWS
+    # square above TR_DENSE_MAX_ROWS; the grid's is "ring_cuda" or
+    # "ring_reference" (or "allgather" where the grid forms no ring)
     metrics.emit("tr_backend", tr_stats.backend)
     metrics.emit("tr_overflow", int(tr_stats.n_overflow))
+    metrics.emit_many(tr_exchange)
     metrics.emit("nnz_S", int(s_mat.nnz()))
     metrics.emit("s_density", metrics["nnz_S"] / max(1, int(n)))
 

@@ -15,7 +15,9 @@ over a ``("data", "model")`` mesh; here each rank of a
   ``A_ij``: the entries of its rows whose global column id falls in grid
   column ``j``'s range, in ``block_capacity`` slots.  :func:`block_layout`
   is that layout as one global matrix ``(n, pc · block_capacity)``, the
-  array JAX shards; :func:`collect` gathers it back on every rank.
+  array JAX shards; :func:`own_block` builds one rank's block of it from
+  the rank's rows alone, and :func:`collect` gathers it back on every
+  rank.
 * :func:`summa_ring` is the explicit-exchange Cannon ring for square grids:
   a Cannon skew of the blocks (:func:`_skew_a` / :func:`_skew_b` are its
   global view), then ``pc`` stages in batches of ``stages_per_call``, each
@@ -32,8 +34,9 @@ over a ``("data", "model")`` mesh; here each rank of a
   :func:`dist_transitive_reduction` are Algorithm 2 on the grid, with the
   square N = R² on the ring or on all-gathered panels, the row max reduced
   over the grid row and the prune local (§V-D).
-* :func:`overlap_spgemm_shard_map` is the overlap stage's
-  ``distribution="shard_map"`` entry point.
+* :func:`overlap_spgemm_shard_map` and
+  :func:`transitive_reduction_shard_map` are the overlap and the
+  TrReduction stages' ``distribution="shard_map"`` entry points.
 
 Every rank must call these functions in the same order with the same
 shapes: each issues the same collectives, whatever its data holds.
@@ -51,6 +54,7 @@ from .grid import ProcessGrid, resolve_grid, resolve_row_axes
 from .semiring import INF, MP, Semiring, minplus_orient_semiring as MPSR
 from .spgemm import spgemm, spgemm_masked
 from .spmat import EllMatrix, NO_COL, from_coo, merge_sorted_rows, prune
+from .transitive_reduction import TRStats
 from ..obs import schema, span, validated
 
 _I32 = torch.int32
@@ -113,31 +117,18 @@ def block_layout(mat: EllMatrix, *, pc: int, block_capacity: int,
     block ``col // ceil(n_cols / pc)``, rank = its same-block predecessors
     in the row, slot ``block · block_capacity + rank``.  ``semiring``
     supplies the zero of empty slots.  Returns ``(matrix, overflow)``, the
-    entries beyond ``block_capacity`` in some (row, block).  The rank comes
-    from a stable sort by block (JAX counts predecessors pairwise, in
-    O(K²) per row): the same slots."""
-    n, k = mat.cols.shape
-    dev = mat.cols.device
-    cb = -(-mat.n_cols // pc)
-    valid = mat.cols >= 0
-    blk = torch.where(valid, torch.div(mat.cols, cb, rounding_mode="floor"),
-                      pc).to(torch.int64)
-    order = torch.sort(blk, dim=1, stable=True).indices
-    sblk = torch.gather(blk, 1, order).contiguous()
-    first = torch.searchsorted(sblk, sblk, side="left")
-    ranks_sorted = torch.arange(k, device=dev)[None, :] - first
-    rank = torch.empty_like(ranks_sorted).scatter_(1, order, ranks_sorted)
-    in_cap = valid & (rank < block_capacity)
-    overflow = torch.sum(valid & (rank >= block_capacity)).to(_I32)
-    rows = torch.arange(n, device=dev)[:, None].expand(n, k)[in_cap]
-    slot = (blk * block_capacity + rank)[in_cap]
-    width = pc * block_capacity
-    cols = torch.full((n, width), NO_COL, dtype=_I32, device=dev)
-    cols[rows, slot] = mat.cols[in_cap]
-    vals = semiring.zero((n, width), dev)
-    for key, v in mat.vals.items():
-        vals[key][rows, slot] = v[in_cap]
-    return EllMatrix(cols=cols, vals=vals, n_cols=mat.n_cols), overflow
+    entries beyond ``block_capacity`` in some (row, block).  It is the
+    :func:`own_block` of each grid column side by side (JAX counts
+    predecessors pairwise, in O(K²) per row: the same slots)."""
+    blocks = [own_block(mat, pr=1, pc=pc, i=0, j=j,
+                        block_capacity=block_capacity, semiring=semiring)
+              for j in range(pc)]
+    mats = [b for b, _ in blocks]
+    return EllMatrix(
+        cols=torch.cat([m.cols for m in mats], dim=1),
+        vals={key: torch.cat([m.vals[key] for m in mats], dim=1)
+              for key in mats[0].vals},
+        n_cols=mat.n_cols), blocks[0][1]
 
 
 def _dist(g: EllMatrix, grid: ProcessGrid, row_axes) -> DistEll:
@@ -147,23 +138,64 @@ def _dist(g: EllMatrix, grid: ProcessGrid, row_axes) -> DistEll:
                    row_axes=row_axes)
 
 
+def own_block(mat: EllMatrix, *, pr: int, pc: int, i: int, j: int,
+              block_capacity: int, semiring: Semiring
+              ) -> Tuple[EllMatrix, torch.Tensor]:
+    """Block ``(i, j)`` of :func:`block_layout`'s global layout of ``mat``
+    (``(n / pr, block_capacity)``) and the layout's overflow, built from
+    the rows of grid row ``i`` and their entries in grid column ``j``'s
+    range alone: an entry's slot is its rank among the row's entries of
+    that range, as in :func:`block_layout`.  Nothing of the size of the
+    global layout is made (for Aᵀ at ``m_capacity`` rows its int64 sort
+    keys alone are several GB a rank).  The overflow is counted over every
+    row and block, so every rank returns the global count; it is 0 without
+    counting where ``block_capacity`` holds a whole row."""
+    n, k = mat.cols.shape
+    nb = n // pr
+    cb = -(-mat.n_cols // pc)
+    dev = mat.cols.device
+    cols = mat.cols[i * nb:(i + 1) * nb]
+    r, q = torch.nonzero((cols >= j * cb) & (cols < (j + 1) * cb),
+                         as_tuple=True)
+    rank = torch.arange(r.numel(), device=dev) - torch.searchsorted(r, r)
+    keep = rank < block_capacity
+    r, q, rank = r[keep], q[keep], rank[keep]
+    out_cols = torch.full((nb, block_capacity), NO_COL, dtype=_I32,
+                          device=dev)
+    out_cols[r, rank] = cols[r, q]
+    vals = semiring.zero((nb, block_capacity), dev)
+    for key, v in mat.vals.items():
+        vals[key][r, rank] = v[i * nb:(i + 1) * nb][r, q]
+    overflow = torch.zeros((), dtype=_I32, device=dev)
+    if block_capacity < k:
+        for b in range(pc):
+            in_b = (mat.cols >= b * cb) & (mat.cols < (b + 1) * cb)
+            per_row = torch.sum(in_b, dim=1)
+            overflow = overflow + torch.sum(
+                torch.clamp(per_row - block_capacity, min=0)).to(_I32)
+    return EllMatrix(cols=out_cols, vals=vals, n_cols=mat.n_cols), overflow
+
+
 def distribute_ell_blocks(mat: EllMatrix, *, block_capacity: int,
                           semiring: Semiring,
                           mesh: Optional[ProcessGrid] = None,
                           row_axes: Sequence[str] = ("data",)):
     """This rank's :class:`DistEll` block of an already-built (row-sorted)
-    ELL matrix that every rank holds (:func:`block_layout`), with its grid
-    rows on ``row_axes``.  Returns ``(DistEll, overflow)``; the rows must
-    divide by the grid rows."""
+    ELL matrix that every rank holds, with its grid rows on ``row_axes``:
+    block ``(i, j)`` of :func:`block_layout`, built by :func:`own_block`
+    from the rank's rows alone.  Returns ``(DistEll, overflow)``; the rows
+    must divide by the grid rows."""
     grid = resolve_grid(mesh, "square")
     row_axes = resolve_row_axes(grid, row_axes)
     n, pr = mat.cols.shape[0], grid.size(row_axes)
     if n % pr:
         raise ValueError(f"distribute_ell_blocks: {n} rows not divisible by "
                          f"grid rows {pr}")
-    g, overflow = block_layout(mat, pc=grid.pc, block_capacity=block_capacity,
-                               semiring=semiring)
-    return _dist(g, grid, row_axes), overflow
+    blk, overflow = own_block(mat, pr=pr, pc=grid.pc,
+                              i=grid.axis_index(row_axes), j=grid.j,
+                              block_capacity=block_capacity,
+                              semiring=semiring)
+    return DistEll(mat=blk, grid=grid, row_axes=row_axes), overflow
 
 
 def distribute_ell(rows, cols, vals, valid, *, n_rows: int, n_cols: int,
@@ -326,9 +358,12 @@ def summa_allgather(a: DistEll, b: DistEll, *, semiring: Semiring,
 
 def summa_ring(a: DistEll, b: DistEll, *, semiring: Semiring,
                out_block_capacity: int, backend: str = "auto",
-               stages_per_call: int = STAGES_PER_CALL):
+               stages_per_call: int = STAGES_PER_CALL,
+               stage: str = "SpGEMM"):
     """Explicit-exchange Cannon ring SUMMA.  Returns ``(DistEll C,
-    overflow, stats)``.
+    overflow, stats)``.  Its phase spans (skew, ring, ring_stage,
+    stage_merge) take the name ``stage``: the pipeline stage that runs the
+    ring.
 
     Square grids run the ring: the Cannon skew (:func:`_skew_local`), then
     ``pc`` stages in batches of ``stages_per_call``.  Each batch is one call
@@ -391,16 +426,16 @@ def summa_ring(a: DistEll, b: DistEll, *, semiring: Semiring,
                 grid.ppermute(bc, row_axis, left),
                 _tree(bv, lambda v: grid.ppermute(v, row_axis, left)))
 
-    with span("SpGEMM", kind="phase", phase="skew"):
+    with span(stage, kind="phase", phase="skew"):
         cur = _skew_local(a.mat, b.mat, grid, row_axis)
-    with span("SpGEMM", kind="phase", phase="ring", pc=pc,
+    with span(stage, kind="phase", phase="ring", pc=pc,
               stages_per_call=g) as sp:
         chunks_cols, chunks_vals = [], []
         ovf = torch.zeros((), dtype=_I32, device=dev)
         s = 0
         while s < pc:
             sc = min(g, pc - s)
-            with span("SpGEMM", kind="phase", phase="ring_stage", s=s,
+            with span(stage, kind="phase", phase="ring_stage", s=s,
                       stages=sc):
                 panels = [cur]
                 for _ in range(sc - 1):
@@ -433,7 +468,7 @@ def summa_ring(a: DistEll, b: DistEll, *, semiring: Semiring,
         merged_cols = st_cols[order].transpose(0, 1).reshape(n_loc, width)
         merged_vals = _tree(st_vals, lambda v: v[order].transpose(0, 1)
                             .reshape((n_loc, width) + v.shape[3:]))
-        with span("SpGEMM", kind="phase", phase="stage_merge"):
+        with span(stage, kind="phase", phase="stage_merge"):
             mc, mv, mo = merge_sorted_rows(merged_cols, merged_vals,
                                            capacity=out_block_capacity,
                                            semiring=semiring)
@@ -552,32 +587,101 @@ def dist_transitive_reduction_ring(r: DistEll, fuzz: float = 200.0, *,
     exchange ring.  Returns ``(DistEll, iters, nnz, stats)``.
 
     Each pass is one :func:`summa_ring` (min-plus orientation semiring,
-    ``n_block_capacity`` slots per N block, default ``min(K², 4K)``)
-    followed by the local prune step; the loop ends when the global nnz
-    stops changing.  Stats accumulate the rings' exchange words and
-    rounds."""
+    ``n_block_capacity`` slots per N block, default ``min(K², 4K)``) and
+    the lookup of N at R's pattern, under the step span
+    ``TrReduction.square``, followed by the local prune step under
+    ``TrReduction.prune`` (both with ``iter`` and ``path="ring"``, as the
+    local TR's steps); the loop ends when the global nnz stops changing.
+    Stats accumulate the rings' exchange words and rounds, and carry
+    ``n_overflow`` (the products N's blocks dropped, summed over the
+    passes: a product dropped can leave a transitive edge unpruned),
+    ``nnz_initial`` and ``summa_backend`` (what squared the blocks)."""
     grid = r.grid
     kb = r.block_capacity
     if n_block_capacity is None:
         n_block_capacity = min(kb * kb, 4 * kb)
-    fuzz_t = torch.tensor(fuzz, dtype=torch.float32, device=r.mat.cols.device)
+    dev = r.mat.cols.device
+    fuzz_t = torch.tensor(fuzz, dtype=torch.float32, device=dev)
     cur = r
     nnz_cur = _nnz(r, r.mat.cols)
     prev, it = -1, 0
+    ovf = torch.zeros((), dtype=_I32, device=dev)
     stats: Dict = {**schema.zero_defaults("summa_exchange"),
-                   "summa_algorithm": None}
+                   "summa_algorithm": None, "summa_backend": "reference",
+                   "nnz_initial": nnz_cur}
     while nnz_cur != prev and it < max_iters:
-        n_sq, _, st = summa_ring(cur, cur, semiring=MPSR,
-                                 out_block_capacity=n_block_capacity,
-                                 backend=backend)
-        got, found = n_sq.mat.lookup(MPSR, cur.mat.cols)
-        pruned = _prune_step(grid, cur.mat, got[MP], found, fuzz_t)
-        cur = DistEll(mat=pruned, grid=grid, row_axes=r.row_axes)
+        with span("TrReduction.square", kind="step", iter=it, path="ring",
+                  nnz=nnz_cur):
+            n_sq, step_ovf, st = summa_ring(
+                cur, cur, semiring=MPSR, out_block_capacity=n_block_capacity,
+                backend=backend, stage="TrReduction")
+            got, found = n_sq.mat.lookup(MPSR, cur.mat.cols)
+        with span("TrReduction.prune", kind="step", iter=it,
+                  path="ring") as sp:
+            pruned = _prune_step(grid, cur.mat, got[MP], found, fuzz_t)
+            cur = DistEll(mat=pruned, grid=grid, row_axes=r.row_axes)
+            prev, nnz_cur, it = nnz_cur, _nnz(r, pruned.cols), it + 1
+            sp.annotate(nnz=nnz_cur)
+        ovf = ovf + step_ovf
         stats["exchange_words_summa"] += st["exchange_words_summa"]
         stats["exchange_rounds_summa"] += st["exchange_rounds_summa"]
         stats["summa_algorithm"] = st["summa_algorithm"]
-        prev, nnz_cur, it = nnz_cur, _nnz(r, pruned.cols), it + 1
+        stats["summa_backend"] = st.get("summa_backend", "reference")
+    stats["n_overflow"] = int(ovf)
     return cur, it, nnz_cur, stats
+
+
+def transitive_reduction_shard_map(r: EllMatrix, fuzz: float = 200.0, *,
+                                   max_iters: int = 10,
+                                   n_block_capacity: Optional[int] = None,
+                                   mesh: Optional[ProcessGrid] = None,
+                                   row_axes: Optional[Sequence[str]] = None,
+                                   backend: str = "auto"):
+    """Algorithm 2 on the grid for an R every rank holds — the
+    TrReduction stage's path on a grid of more than one rank, the twin of
+    :func:`overlap_spgemm_shard_map`.  The grid rows lie on ``row_axes``
+    (default: the grid's ``("pod", "data")`` axes).
+
+    Pads R's rows to a multiple of the grid rows and lays it out in blocks
+    at R's full row capacity (phase ``TrReduction.distribute``: the layout
+    drops nothing), runs :func:`dist_transitive_reduction_ring`, then
+    gathers S on every rank and merges it back to R's capacity (phase
+    ``TrReduction.collect``).  S equals ``transitive_reduction_fused``'s,
+    bit for bit, whenever N's blocks drop no product; ``TRStats.n_overflow``
+    counts the products they drop.  Returns ``(S, TRStats, exchange)``:
+    ``TRStats.backend`` is ``"ring_cuda"`` where the ``spgemm`` kernel
+    squared the blocks, ``"ring_reference"`` where its plain version did
+    and ``"allgather"`` where the grid cannot form the ring; ``exchange``
+    holds ``tr_exchange_words`` and ``tr_exchange_rounds``, the words a
+    rank sent and the rotations it made, as the rings count them."""
+    grid = resolve_grid(mesh, "square")
+    row_axes = resolve_row_axes(grid, row_axes)
+    n = r.cols.shape[0]
+    r_pad = _pad_rows(r, grid.size(row_axes), MPSR)
+    with span("TrReduction", kind="phase", phase="distribute") as sp:
+        rd, ovf_d = distribute_ell_blocks(
+            r_pad, block_capacity=r.capacity, semiring=MPSR, mesh=grid,
+            row_axes=row_axes)
+        sp.set_output(rd.mat.cols)
+    sd, iters, nnz, st = dist_transitive_reduction_ring(
+        rd, fuzz, n_block_capacity=n_block_capacity, max_iters=max_iters,
+        backend=backend)
+    with span("TrReduction", kind="phase", phase="collect") as sp:
+        g = collect(sd)
+        mc, mv, mo = merge_sorted_rows(g.cols, g.vals, capacity=r.capacity,
+                                       semiring=MPSR)
+        s_mat = EllMatrix(cols=mc[:n], vals=_tree(mv, lambda v: v[:n]),
+                          n_cols=r.n_cols)
+        sp.set_output(s_mat.cols)
+    path = ("allgather" if st["summa_algorithm"] != "ring"
+            else f"ring_{st['summa_backend']}")
+    tr_stats = TRStats(iterations=iters, nnz_initial=st["nnz_initial"],
+                       nnz_final=nnz,
+                       n_overflow=st["n_overflow"] + int(ovf_d + mo),
+                       backend=path)
+    return s_mat, tr_stats, {
+        "tr_exchange_words": st["exchange_words_summa"],
+        "tr_exchange_rounds": st["exchange_rounds_summa"]}
 
 
 def dist_transitive_reduction(r: DistEll, fuzz: float = 200.0, *,

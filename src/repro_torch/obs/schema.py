@@ -1,9 +1,10 @@
 """Declared metric schema for the pipeline's stats surface.
 
 This is the port's own copy of ``repro.obs.schema``: the registry, the
-zero groups and the validators are the same, key for key, so a stats dict
-of the PyTorch pipeline validates exactly where the JAX one does
-(``tests/test_torch_foundation.py`` holds the two registries equal).
+zero groups and the validators are the same, key for key, but for the
+port's own keys :data:`PORT_ONLY`, so a stats dict of the PyTorch pipeline
+validates exactly where the JAX one does (``tests/test_torch_foundation.py``
+holds the two registries equal outside :data:`PORT_ONLY`).
 
 Every key the assembly pipeline emits into ``AssemblyResult.stats`` — and
 every key the distributed sub-stages feed it through (``ContigSet.stats``,
@@ -128,8 +129,14 @@ _SPECS: Tuple[MetricSpec, ...] = (
     # --- TrReduction (TRStats flattened) ---
     _c("tr_iterations", "iterations", "Algorithm 2 passes to fixed point"),
     _l("tr_backend", "TR path that actually ran (cuda|reference; "
-       "surfaces the dense-cap silent downgrade)"),
+       "surfaces the dense-cap silent downgrade; ring_cuda|ring_reference|"
+       "allgather on a grid of several ranks)"),
     _c("tr_overflow", "rows", "rows overflowing the sampled-square capacity"),
+    # the port's own: Algorithm 2 on the grid (core/summa.py)
+    _c("tr_exchange_words", "words",
+       "words a rank sent in the ring rotations of the distributed TR"),
+    _c("tr_exchange_rounds", "rounds",
+       "ring rotations of the distributed TR, summed over its passes"),
     _c("nnz_S", "entries", "nonzeros of the string matrix S"),
     _g("s_density", "entries/read", "nnz_S per read"),
     # --- Contigs (ContigSet.stats) ---
@@ -170,6 +177,10 @@ _SPECS: Tuple[MetricSpec, ...] = (
 
 #: name -> spec for every registered metric.
 SCHEMA: Dict[str, MetricSpec] = {s.name: s for s in _SPECS}
+
+#: the keys only the port emits (the JAX package keeps TrReduction local):
+#: emitted where TrReduction runs on a grid of several ranks, absent elsewhere
+PORT_ONLY: Tuple[str, ...] = ("tr_exchange_words", "tr_exchange_rounds")
 
 #: the declared present-and-zero groups (see :class:`MetricSpec`).
 ZERO_GROUPS: Tuple[str, ...] = tuple(sorted(

@@ -398,6 +398,64 @@ def job_assemble(inputs):
     return out
 
 
+def _block_local_prune(grid, r, got, found, fuzz):
+    """A planted fault of the distributed TR's prune: the row maximum of
+    the rank's block alone, not reduced over the grid row."""
+    from repro_torch.core.semiring import INF, MP, minplus_orient_semiring
+    from repro_torch.core.spmat import EllMatrix, prune
+
+    v = r.vals[MP]
+    vals_m = torch.where(torch.isfinite(v) & (r.cols >= 0)[:, :, None], v,
+                         -INF)
+    row_max = torch.amax(vals_m, dim=(1, 2)) + fuzz
+    trans = ((got <= row_max[:, None, None]) & torch.isfinite(got)
+             & found[:, :, None] & torch.isfinite(v))
+    new_vals = torch.where(trans, INF, v)
+    dead = ~torch.any(torch.isfinite(new_vals), dim=-1) & (r.cols >= 0)
+    return prune(EllMatrix(cols=r.cols, vals={MP: new_vals}, n_cols=r.n_cols),
+                 dead, minplus_orient_semiring)
+
+
+def job_tr_grid(inputs):
+    """TrReduction on the 2×2 grid: a traced ``assemble(distribution=
+    "shard_map")`` (results, stats and the TrReduction stage's spans), then
+    ``transitive_reduction_shard_map`` on its R with N's blocks cut to
+    ``inputs["small_capacity"]`` slots, and at the fuzz
+    ``inputs["fault_fuzz"]`` without and with the planted fault of
+    :func:`_block_local_prune`."""
+    from unittest import mock
+
+    from repro_torch.assembly.pipeline import PipelineConfig, assemble
+    from repro_torch.core import summa as S
+    from repro_torch.core.grid import ProcessGrid
+
+    grid = ProcessGrid.square()
+    cfg = PipelineConfig(**{**inputs["cfg"], "distribution": "shard_map",
+                            "device": "cpu", "mesh": grid, "trace": True})
+    res = assemble(inputs["codes"], inputs["lengths"], cfg)
+    (tr_root,) = [r for r in res.trace.roots if r.name == "TrReduction"]
+    spans = [(sp.label, sp.attrs.get("kind"), sp.attrs.get("iter"),
+              sp.attrs.get("path")) for sp in tr_root.walk()]
+    out = {"R": _ell_np(res.r_graph), "S": _ell_np(res.s_graph),
+           "stats": dict(res.stats), "contained": _np(res.contained),
+           "contigs": [(c.reads, c.length, c.codes) for c in res.contigs],
+           "polished": [(c.reads, c.length, c.codes)
+                        for c in res.polished_contigs],
+           "spans": spans, "labels": sorted(res.trace.summary())}
+
+    def tr(fuzz=cfg.tr_fuzz, **kw):
+        s, st, xs = S.transitive_reduction_shard_map(
+            res.r_graph, fuzz, max_iters=cfg.tr_max_iters, mesh=grid, **kw)
+        return _ell_np(s), st.n_overflow, xs
+
+    out["small"] = tr(n_block_capacity=inputs["small_capacity"])
+    fuzz = inputs["fault_fuzz"]
+    out["sound"] = tr(fuzz=fuzz)
+    with mock.patch.object(S, "_prune_step", _block_local_prune):
+        out["fault"] = tr(fuzz=fuzz)
+    return out
+
+
 def job_compressed_reduce(inputs):
     """``CompressedAllReduce.reduce`` of this rank's gradients
     (``inputs["grads"][rank]``) over ``"data"`` of a ``(world, 1)`` grid,

@@ -49,7 +49,12 @@ def _assert_vals_equal(jvals, tvals):
 
 
 def test_schema_registry_matches_jax():
-    assert list(tschema.SCHEMA) == list(jschema.SCHEMA)
+    assert [k for k in tschema.SCHEMA
+            if k not in tschema.PORT_ONLY] == list(jschema.SCHEMA)
+    assert set(tschema.PORT_ONLY) <= set(tschema.SCHEMA)
+    assert not set(tschema.PORT_ONLY) & set(jschema.SCHEMA)
+    for name in tschema.PORT_ONLY:
+        assert tschema.SCHEMA[name].zero_group is None
     for name, spec in jschema.SCHEMA.items():
         t = tschema.SCHEMA[name]
         assert (t.kind, t.unit, t.zero_group) == (spec.kind, spec.unit,

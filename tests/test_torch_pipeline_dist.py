@@ -88,12 +88,18 @@ def rank1(golden):
     return out
 
 
-def _expected_keys(jstats):
+def _expected_keys(jstats, tr_on_grid):
     """The key order of a JAX shard_map run: the ring SUMMA's stats right
-    after ``overlap_distribution``."""
+    after ``overlap_distribution``; where TrReduction ran on a grid of
+    several ranks, the port's own TR exchange keys right after
+    ``tr_overflow``."""
     keys = [k for k in jstats if k not in SUMMA_KEYS]
     at = keys.index("overlap_distribution") + 1
-    return keys[:at] + list(SUMMA_KEYS) + keys[at:]
+    keys = keys[:at] + list(SUMMA_KEYS) + keys[at:]
+    if tr_on_grid:
+        at = keys.index("tr_overflow") + 1
+        keys = keys[:at] + list(schema.PORT_ONLY) + keys[at:]
+    return keys
 
 
 def _np_ell(m):
@@ -102,14 +108,20 @@ def _np_ell(m):
             "vals": {k: np.asarray(v) for k, v in vals.items()}}
 
 
-def _assert_same(jres, jdev, got, backend):
+def _assert_same(jres, jdev, got, backend, tr_on_grid=False):
     for key in ("R", "S"):
         want = _np_ell(jres.r_graph if key == "R" else jres.s_graph)
         np.testing.assert_array_equal(got[key]["cols"], want["cols"])
         for k, v in want["vals"].items():
             np.testing.assert_array_equal(got[key]["vals"][k], v)
     st = got["stats"]
-    assert list(st) == _expected_keys(jres.stats)
+    assert list(st) == _expected_keys(jres.stats, tr_on_grid)
+    # TrReduction on the grid (the ring's plain version on CPU tensors)
+    # where it has several ranks, else the local TR, as in JAX
+    if tr_on_grid:
+        assert st["tr_backend"] == "ring_reference"
+    else:
+        assert st["tr_backend"] in ("reference", "cuda")
     assert schema.validate_stats(st, require_groups=schema.ZERO_GROUPS) == []
     for key, val in jres.stats.items():
         if key in PATH_KEYS or key in MEMORY_KEYS or key.startswith("exchange_"):
@@ -136,7 +148,7 @@ def _assert_same(jres, jdev, got, backend):
 def test_golden_shard_map_on_four_ranks_matches_jax(golden, ranks4, backend):
     _, jres, jdev = golden
     for out in ranks4:
-        _assert_same(jres, jdev, out[backend], backend)
+        _assert_same(jres, jdev, out[backend], backend, tr_on_grid=True)
 
 
 @pytest.mark.dist

@@ -222,3 +222,64 @@ def test_dist_tr_allgather_variants_match_jax_local(inputs, tr4, variant):
         got = out[variant]
         assert _edges(got[0]) == _edges(_np_ell(s))
         assert got[-1] == int(s.nnz())
+
+
+def _plain_block(cols, vals, n_cols, pr, pc, i, j, bc):
+    """Block ``(i, j)`` of the 2D block layout by a loop over the entries:
+    each row's entries of grid column ``j``'s range, in row order, in
+    ``bc`` slots; and the entries past ``bc`` in any (row, block)."""
+    n, k = cols.shape
+    nb, cb = n // pr, -(-n_cols // pc)
+    out_c = np.full((nb, bc), -1, np.int32)
+    out_v = np.full((nb, bc, 4), np.inf, np.float32)
+    overflow = 0
+    for r in range(n):
+        used = [0] * pc
+        for q in range(k):
+            c = int(cols[r, q])
+            if c < 0:
+                continue
+            b = c // cb
+            if used[b] >= bc:
+                overflow += 1
+            elif b == j and i * nb <= r < (i + 1) * nb:
+                out_c[r - i * nb, used[b]] = c
+                out_v[r - i * nb, used[b]] = vals[r, q]
+            used[b] += 1
+    return out_c, out_v, overflow
+
+
+@pytest.mark.parametrize("pr,pc", [(1, 1), (2, 2), (1, 2), (2, 1), (4, 2),
+                                   (3, 3)])
+@pytest.mark.parametrize("block_capacity", [8, 3, 1])
+def test_own_block_is_the_block_of_the_2d_layout(pr, pc, block_capacity):
+    """``own_block`` builds block ``(i, j)`` of the 2D block layout from
+    the rank's rows alone, every rank gets the layout's overflow, and
+    ``block_layout`` is the blocks of a grid row side by side."""
+    import torch
+
+    from repro_torch.convert import ell_from_numpy
+    from repro_torch.core import summa as S
+    from repro_torch.core.semiring import MP
+    from repro_torch.core.semiring import minplus_orient_semiring as MPSR
+
+    mat, _ = _mpsr_mat(36, 34, 8, 160, pr * 10 + pc)
+    d = _np_ell(mat)
+    r = ell_from_numpy(**d)
+    g, ovf = S.block_layout(r, pc=pc, block_capacity=block_capacity,
+                            semiring=MPSR)
+    for i in range(pr):
+        for j in range(pc):
+            want_c, want_v, want_ovf = _plain_block(
+                d["cols"], d["vals"]["v"], d["n_cols"], pr, pc, i, j,
+                block_capacity)
+            got, got_ovf = S.own_block(r, pr=pr, pc=pc, i=i, j=j,
+                                       block_capacity=block_capacity,
+                                       semiring=MPSR)
+            assert int(got_ovf) == int(ovf) == want_ovf
+            np.testing.assert_array_equal(got.cols.numpy(), want_c)
+            np.testing.assert_array_equal(got.vals[MP].numpy(), want_v)
+            lb = S.local_block(g, pr, pc, i, j)
+            assert torch.equal(lb.cols, got.cols)
+            assert torch.equal(lb.vals[MP], got.vals[MP])
+    assert (int(ovf) == 0) == (block_capacity == r.capacity)

@@ -197,10 +197,89 @@ def test_benchmark_names_every_step_span(runs):
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     named = {m["name"][len("step_s."):] for m in bench["per_layer"]
              if m["name"].startswith("step_s.")
-             and not m["name"].startswith("step_s.SpGEMM.")}
+             and m["layer"] == "Stage steps (step spans)"}
     opened = {sp.label for sp in runs["traced"].trace.spans()
               if sp.attrs.get("kind") == "step"}
     assert named == opened == {x for v in STEPS.values() for x in v}
+
+
+# --- TrReduction on a 2x2 grid of four gloo ranks -----------------------------
+
+GRID_CELL = "hsapiens-summa-2x2.pb-d10-l7401"
+TR_STEPS = {"TrReduction.square", "TrReduction.prune"}
+TR_PHASES = {"TrReduction.distribute", "TrReduction.collect"}
+
+
+@pytest.fixture(scope="module")
+def tr_grid(tmp_path_factory):
+    """A traced ``assemble(distribution="shard_map")`` on every rank of a
+    2x2 grid (``tests/_torch_dist.job_tr_grid``)."""
+    from _torch_dist import run_ranks
+
+    rs = _reads()
+    return rs, run_ranks(4, "job_tr_grid",
+                         {"codes": rs.codes, "lengths": rs.lengths,
+                          "cfg": {"backend": "cuda"}, "small_capacity": 1,
+                          "fault_fuzz": 150.0},
+                         tmp_path_factory.mktemp("tr_grid_spans"))
+
+
+@pytest.mark.dist
+def test_grid_tr_opens_its_phases_and_the_local_steps(tr_grid):
+    """The distributed TR opens ``TrReduction.distribute``, then a
+    ``square`` and a ``prune`` step a pass (the local TR's labels, with
+    ``path="ring"``; the ring's own phases nest in ``square``), then
+    ``TrReduction.collect``."""
+    for out in tr_grid[1]:
+        iters = out["stats"]["tr_iterations"]
+        assert iters >= 2
+        top = [s for s in out["spans"] if s[0] in TR_STEPS | TR_PHASES]
+        assert [s[0] for s in top] == (
+            ["TrReduction.distribute"]
+            + ["TrReduction.square", "TrReduction.prune"] * iters
+            + ["TrReduction.collect"])
+        assert [s[1] for s in top] == ["phase"] + ["step"] * 2 * iters + [
+            "phase"]
+        assert [s[2] for s in top[1:-1]] == [
+            i for i in range(iters) for _ in range(2)]
+        assert {s[3] for s in top[1:-1]} == {"ring"}
+        assert sum(s[0] == "TrReduction.ring" for s in out["spans"]) == iters
+        # the ring's phases take the stage's name, not SpGEMM's
+        assert not any(s[0].startswith("SpGEMM") for s in out["spans"])
+
+
+@pytest.mark.dist
+def test_grid_tr_counts_the_words_its_rings_rotate(tr_grid):
+    """``tr_exchange_words`` / ``_rounds``: one rotation a pass on 2x2,
+    each shipping the rank's whole R block twice (as A panel and as B
+    panel; a slot is a column id and four min-plus values), as
+    ``bench_comm_model.words_summa`` counts a ring SUMMA."""
+    from benchmarks.bench_comm_model import words_summa
+
+    rs, outs = tr_grid
+    n_pad = -(-rs.codes.shape[0] // 2) * 2
+    k = PipelineConfig().r_capacity
+    for out in outs:
+        st = out["stats"]
+        iters = st["tr_iterations"]
+        assert st["tr_exchange_rounds"] == iters
+        assert st["tr_exchange_words"] == iters * words_summa(
+            n_rows=n_pad, a_block_slots=k, a_words_per_slot=5, m_rows=n_pad,
+            b_block_slots=k, b_words_per_slot=5, pr=2, pc=2)
+        assert st["tr_overflow"] == 0 and st["tr_backend"] == "ring_reference"
+
+
+@pytest.mark.dist
+def test_benchmark_names_spans_the_grid_opens(tr_grid):
+    """Every ``step_s.*`` metric of the 2x2 cell names a label that the
+    traced grid run opens."""
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    named = {m["name"][len("step_s."):] for m in bench["per_layer"]
+             if m["name"].startswith("step_s.")
+             and GRID_CELL in m.get("workloads", [])}
+    assert TR_PHASES | TR_STEPS <= named
+    for out in tr_grid[1]:
+        assert named <= set(out["labels"])
 
 
 def test_spans_keep_no_output_and_steps_never_synchronise(runs):
@@ -502,7 +581,7 @@ def test_each_new_metric_has_exactly_one_reader():
     mods = harness.readers()
     new = [m["name"] for m in bench["per_layer"]
            if m["name"].startswith(("step_s.", "own_peak_gib."))]
-    assert len(new) == 13 + 3 + 8
+    assert len(new) == 13 + 3 + 2 + 8
     for name in new:
         rd = harness.reader_for(name, mods)
         assert rd is (step_s if name.startswith("step_s.") else own_peak_gib)
