@@ -68,7 +68,9 @@ exit, no result line) on any check that does not hold:
              instance took and the instances' registers and spills.
              pileup is held on the consensus call, its time split into the
              bin passes (two launches and a device cumsum) and the vote
-             launch;
+             launch.  spgemm_masked (the TR's sampled square above
+             TR_DENSE_MAX_ROWS) is held on phase 3's R, against its plain
+             version and the torch ``spgemm_masked``;
 4b. cc     — ``connected_components(backend="cuda")`` on three inputs: the
              state graphs ``expand_states`` of phase 3's S (its launch
              counts, set to 0 just before, are the cc record's) and R, and
@@ -100,19 +102,23 @@ exit, no result line) on any check that does not hold:
              23), nothing cut.  Phases 1-6 return first: under 1 GB may be
              allocated when it starts.  ``assemble()`` traced, gspmd, its
              counts set to 0 just before and read just after: xdrop once per
-             ``align_chunk`` block of live pairs, pileup 3, minplus 0 (n >
-             TR_DENSE_MAX_ROWS: ``tr_backend == "reference"``, the ELL
-             square); then shard_map on a 1×1 grid over a 1-rank NCCL group
-             (as 3b's): spgemm 1 (on ~416 M candidates), xdrop 1, pileup 3,
-             and R, S, the stats (but path and exchange keys) and the
-             polished contigs equal to the gspmd run's.  Each prints its
+             ``align_chunk`` block of live pairs, pileup 3, minplus 0 and
+             spgemm_masked once a TR iteration (n > TR_DENSE_MAX_ROWS:
+             ``tr_backend == "cuda_masked"``, the sampled square); then
+             shard_map on a 1×1 grid over a 1-rank NCCL group (as 3b's):
+             spgemm 1 (on ~416 M candidates), xdrop 1, pileup 3,
+             spgemm_masked once a TR iteration, and R, S, the stats (but
+             path and exchange keys) and the polished contigs equal to the
+             gspmd run's.  Each prints its
              stage times, its stage peaks, the overflow counts and the graph
              sizes.  Then, on this run's own captured inputs, exact against
              the plain versions, with CUDA-event times beside phase 4's:
              xdrop on the first and the last 4096-pair chunk (the plain
              version takes ~3.5 s a chunk, so not the whole bucket), the
              shard_map overlap launch of spgemm (the plain version in blocks
-             of 4096 rows: each row is its own), one whole pileup call.
+             of 4096 rows: each row is its own), one whole pileup call, the
+             TR's first and last sampled squares (spgemm_masked, also held
+             to the torch square).
              Against the truth, on the host: contig count, N50, longest, the
              genome fraction (the union of the contigs' truth intervals),
              and the draft's and polished contigs' identity on the genome's
@@ -226,9 +232,10 @@ import subprocess
 import sys
 import time
 
-KERNEL_NAMES = ("xdrop", "minplus", "pileup", "spgemm", "cc")
+KERNEL_NAMES = ("xdrop", "minplus", "pileup", "spgemm", "spgemm_masked", "cc")
 # the kernels of each path: the single-device path does not run spgemm,
-# and only connected_components runs cc
+# only connected_components runs cc, and spgemm_masked squares the TR only
+# above TR_DENSE_MAX_ROWS (phase 6b)
 GSPMD_KERNELS = ("xdrop", "minplus", "pileup")
 SHARD_MAP_KERNELS = ("xdrop", "minplus", "pileup", "spgemm")
 REPLACES = {
@@ -236,13 +243,15 @@ REPLACES = {
     "minplus": "src/repro/kernels/minplus/minplus.py:54",
     "pileup": "src/repro/kernels/pileup/pileup.py:106",
     "spgemm": "src/repro/kernels/spgemm/spgemm.py:133",
+    # no Pallas kernel: the JAX package's TR squares wide graphs in array code
+    "spgemm_masked": "src/repro/core/spgemm.py:spgemm_masked (no kernel)",
     "cc": "src/repro/kernels/cc/cc.py:66",
 }
 # the ``kernel`` attribute of each kernel's ``kernel_launch`` span: the
 # name the JAX package's spans give the same kernel
 SPAN_KERNEL = {"xdrop": "xdrop_extend", "minplus": "minplus_dense",
                "pileup": "pileup_vote", "spgemm": "spgemm_ring_stages",
-               "cc": "cc_labels"}
+               "spgemm_masked": "spgemm_masked", "cc": "cc_labels"}
 STAGES = ["CountKmer", "CreateSpMat", "SpGEMM", "Alignment", "BuildR",
           "TrReduction", "Contigs", "Consensus"]
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; f32 add/min
@@ -356,6 +365,29 @@ def spgemm_work(args, kw, got):
             "t_bytes": t_bytes, "t_ops": t_ops,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def masked_work(a_cols, a_vals, b_cols, b_vals, m_cols):
+    """The work of one ``spgemm_masked`` launch: ``products`` (a live A
+    slot's B slot whose column the mask row holds: 8 adds and 8 mins each,
+    with the fold), and the least time, each operand read once and the
+    output written once (``t_bytes``, ``t_ops``, in seconds)."""
+    import torch
+
+    keys = torch.where(m_cols >= 0, m_cols.long(), 1 << 31).contiguous()
+    products = 0
+    for a in range(a_cols.shape[1]):
+        k = a_cols[:, a].long()
+        j = b_cols[k.clamp(min=0)].long()
+        pos = torch.searchsorted(keys, j.clamp(min=0).contiguous()).clamp(
+            max=m_cols.shape[1] - 1)
+        hit = (keys.gather(1, pos) == j) & (j >= 0) & (k >= 0)[:, None]
+        products += int(hit.sum())
+    n, km = m_cols.shape
+    nbytes = (20 * int((a_cols >= 0).sum()) + 20 * int((b_cols >= 0).sum())
+              + 4 * m_cols.numel() + 16 * n * km)
+    return {"products": products, "t_bytes": nbytes / HBM_BYTES_S,
+            "t_ops": 16 * products / F32_OPS_S}
 
 
 def pileup_work(draft, pieces, start, plen):
@@ -506,7 +538,10 @@ def bacterial_phase(args, check, records, device: str = "cuda") -> dict:
     from repro_torch.assembly.pipeline import assemble
     from repro_torch.core import backend as B
     from repro_torch.core.grid import release_grids
-    from repro_torch.core.spmat import ell_equal
+    from repro_torch.core.semiring import MP
+    from repro_torch.core.semiring import minplus_orient_semiring as SR
+    from repro_torch.core.spgemm import spgemm_masked
+    from repro_torch.core.spmat import EllMatrix, ell_equal
     from repro_torch.core.transitive_reduction import TR_DENSE_MAX_ROWS
 
     cuda = device == "cuda"
@@ -533,7 +568,9 @@ def bacterial_phase(args, check, records, device: str = "cuda") -> dict:
     kept, calls = {}, {}
     ops = {"xdrop_extend": K.xdrop_extend_batch,
            "consensus": K.pileup_vote,
-           "spgemm_ring_stages": K.spgemm_ring_stages}
+           "spgemm_ring_stages": K.spgemm_ring_stages,
+           "spgemm_masked": K.spgemm_masked_minplus}
+    gspmd_ops = ("xdrop_extend", "consensus", "spgemm_masked")
 
     def keep(op, fn):
         def wrapped(*a, **kw):
@@ -547,7 +584,7 @@ def bacterial_phase(args, check, records, device: str = "cuda") -> dict:
         return {sp.name: sp.attrs.get("peak_hbm_bytes")
                 for sp in (res.trace.roots if res.trace else ())}
 
-    for op in ("xdrop_extend", "consensus"):
+    for op in gspmd_ops:
         B.register_op(op, "cuda", keep(op, ops[op]))
     try:
         K.reset_launch_counts()
@@ -557,7 +594,7 @@ def bacterial_phase(args, check, records, device: str = "cuda") -> dict:
         wall = time.perf_counter() - t0
         launches = K.launch_counts()
     finally:
-        for op in ("xdrop_extend", "consensus"):
+        for op in gspmd_ops:
             B.register_op(op, "cuda", ops[op])
     st = res.stats
     dense_tr = n <= TR_DENSE_MAX_ROWS
@@ -571,8 +608,12 @@ def bacterial_phase(args, check, records, device: str = "cuda") -> dict:
     print("[bacterial] gspmd " + json.dumps({k: st[k] for k in keys})
           + "; stage peaks (bytes): " + json.dumps(stage_peaks(res))
           + f"; launches {json.dumps(launches)}", flush=True)
-    check(st["tr_backend"] == ("cuda" if dense_tr else "reference"),
+    check(st["tr_backend"] == ("cuda" if dense_tr else "cuda_masked"),
           f"bacterial: tr_backend {st['tr_backend']!r} at {n} reads")
+    # the TR squares once an iteration: the dense kernel up to
+    # TR_DENSE_MAX_ROWS, the sampled kernel above it
+    tr_launches = {"minplus": st["tr_iterations"] if dense_tr else 0,
+                   "spgemm_masked": 0 if dense_tr else st["tr_iterations"]}
     live_chunks = -(-max(st["n_aligned"], 1) // cfg.align_chunk)
     if cuda:
         check(launches["xdrop"] == live_chunks,
@@ -580,15 +621,20 @@ def bacterial_phase(args, check, records, device: str = "cuda") -> dict:
               f"{st['n_aligned']} live pairs in {live_chunks} chunks")
         check(launches["pileup"] == 3,
               f"bacterial: {launches['pileup']} pileup launches")
-        check(launches["spgemm"] == 0 and (launches["minplus"] > 0) == dense_tr,
+        check(launches["spgemm"] == 0 and all(
+                  launches[k] == v for k, v in tr_launches.items()),
               f"bacterial: launches {launches} (the TR's dense kernel runs "
-              f"only at n <= {TR_DENSE_MAX_ROWS})")
+              f"only at n <= {TR_DENSE_MAX_ROWS}, the sampled one above, "
+              f"once in each of {st['tr_iterations']} iterations)")
     check(st["n_passed"] > 0 and res.consensus is not None
           and res.consensus.n_contigs > 0, "bacterial: no contigs")
     check(int(res.consensus.codes.max()) <= 3,
           "bacterial: polished bases outside 0..3")
     cap_x, cap_p = kept.pop("xdrop_extend"), kept.pop("consensus")
-    check(calls == {"xdrop_extend": live_chunks, "consensus": 1},
+    cap_m = kept.pop("spgemm_masked", None)
+    check(calls == {"xdrop_extend": live_chunks, "consensus": 1,
+                    **({} if dense_tr else
+                       {"spgemm_masked": st["tr_iterations"]})},
           f"bacterial: op calls {calls}")
 
     # --- the shard_map path on a 1-rank group (phase 3b's kind) ---
@@ -621,7 +667,7 @@ def bacterial_phase(args, check, records, device: str = "cuda") -> dict:
     if cuda:
         check(sm_launches["spgemm"] == 1 and sm_launches["xdrop"] == 1
               and sm_launches["pileup"] == 3
-              and (sm_launches["minplus"] > 0) == dense_tr,
+              and all(sm_launches[k] == v for k, v in tr_launches.items()),
               f"bacterial shard_map: launches {sm_launches}")
         check(ss["summa_backend"] == "cuda",
               f"summa_backend {ss['summa_backend']!r}")
@@ -730,8 +776,26 @@ def bacterial_phase(args, check, records, device: str = "cuda") -> dict:
     del cap_p, got, want
     out["minplus"] = [{"input": f"n = {n} reads: " + (
         "the dense TR" if dense_tr else
-        f"over TR_DENSE_MAX_ROWS = {TR_DENSE_MAX_ROWS}, the ELL square"),
+        f"over TR_DENSE_MAX_ROWS = {TR_DENSE_MAX_ROWS}, the sampled square"),
         "launches": launches["minplus"]}]
+    # the TR's first and last sampled squares of this run, against the
+    # plain version and the torch square (the reference backend's)
+    for which, (ma, _) in (() if cap_m is None else
+                           (("first", cap_m[0]), ("last", cap_m[1]))):
+        got = K.spgemm_masked_minplus(*ma)
+        want, plain_ms = plain_once(lambda: K.spgemm_masked_minplus_ref(*ma))
+        r = EllMatrix(cols=ma[0], vals={MP: ma[1]}, n_cols=ma[0].shape[0])
+        core = spgemm_masked(r, r, r, semiring=SR).vals[MP]
+        exact("spgemm_masked", [got, want], [want, core])
+        mw = masked_work(*ma)
+        ms = time_ms(lambda: K.spgemm_masked_minplus(*ma), 20) \
+            if cuda else None
+        entry("spgemm_masked", f"gspmd TR, {which} iteration's R: "
+              f"{r.n_rows} rows x {r.capacity} slots, nnz {int(r.nnz())}, "
+              f"{mw['products']} products", launches["spgemm_masked"], ms,
+              plain_ms, mw["t_bytes"], mw["t_ops"])
+        del got, want, core
+    del cap_m
     for rec in records:
         if rec["name"] in out:
             rec["bacterial"] = out[rec["name"]]
@@ -1813,7 +1877,7 @@ def kernel_phases(args):
         )
         from repro_torch.configs import get_config, reduced_config
         from repro_torch.core.grid import POD_AXES, ProcessGrid
-        from repro_torch.core.spgemm import spgemm
+        from repro_torch.core.spgemm import spgemm, spgemm_masked
         from repro_torch.core.semiring import overlap_semiring
         from repro_torch.core.semiring import MP, minplus_orient_semiring
         from repro_torch.core.spmat import EllMatrix, ell_equal
@@ -2299,6 +2363,26 @@ def kernel_phases(args):
            16 * 3 * n * n, 16 * n * n * n, F32_OPS_S,
            plain_note=f"plain version on {rows} of {n} rows")
     del full, want
+
+    # spgemm_masked: the sampled square of the same R (the TR's square above
+    # TR_DENSE_MAX_ROWS; phase 3 stays below it, so phase 6b launches it in
+    # the pipeline), held to its plain version and to the torch square
+    r = res.r_graph
+    m_args = (r.cols, r.vals[MP], r.cols, r.vals[MP], r.cols)
+    got = K.spgemm_masked_minplus(*m_args)
+    want = K.spgemm_masked_minplus_ref(*m_args)
+    core = spgemm_masked(r, r, r, semiring=minplus_orient_semiring).vals[MP]
+    check(torch.equal(want, core),
+          "spgemm_masked: the plain version differs from the torch square")
+    mw = masked_work(*m_args)
+    record("spgemm_masked", [got], [want],
+           lambda: K.spgemm_masked_minplus(*m_args),
+           lambda: K.spgemm_masked_minplus_ref(*m_args),
+           mw["t_bytes"] * HBM_BYTES_S, 16 * mw["products"], F32_OPS_S,
+           reps=50)
+    records[-1]["input"] = (f"phase 3's R: {r.n_rows} rows x {r.capacity} "
+                            f"slots, {mw['products']} products")
+    del got, want, core, m_args
 
     # pileup: the real consensus call, in three launches: the bin passes
     # (count, device cumsum, fill) and the vote launch

@@ -9,14 +9,16 @@ The PyTorch counterpart of ``repro.core.transitive_reduction``:
   stable;
 * ``transitive_reduction_fused`` — the sampled square ``N∘pattern(R)``.
   With the ``"cuda"`` backend the square is the dense min-plus kernel
-  (``minplus_dense`` op) on ``R.to_dense()``, sampled back at R's pattern;
-  graphs wider than ``TR_DENSE_MAX_ROWS`` fall back to the ELL square, and
-  ``TRStats.backend`` records the path that ran.
+  (``minplus_dense`` op) on ``R.to_dense()``, sampled back at R's pattern,
+  while n ≤ ``TR_DENSE_MAX_ROWS``, and the sampled min-plus kernel
+  (``spgemm_masked`` op) on R's ELL above it; the ``"reference"`` backend
+  squares with the torch-ops ``spgemm_masked``.  ``TRStats.backend``
+  records the path that ran.
 
 The convergence loop is a host loop: each iteration reads nnz.  Each
 iteration opens two step spans, ``TrReduction.square`` and
-``TrReduction.prune`` (attributes ``iter``, ``path`` — ``"minplus"`` or
-``"ell"`` — and the nnz the loop holds).
+``TrReduction.prune`` (attributes ``iter``, ``path`` — ``"minplus"``,
+``"masked"`` or ``"ell"`` — and the nnz the loop holds).
 """
 
 from __future__ import annotations
@@ -33,15 +35,20 @@ from .spgemm import spgemm, spgemm_masked
 from .spmat import EllMatrix, prune
 
 # Above this many rows the dense square would materialize an (n, n, 4) f32
-# operand per iteration (4096 rows ≈ 256 MB); fall back to the sampled ELL
-# square instead.
+# operand per iteration (4096 rows ≈ 256 MB); the sampled square on R's ELL
+# takes over.
 TR_DENSE_MAX_ROWS = 4096
+
+# TRStats.backend of the fused TR -> the path its step spans carry
+_PATHS = {"cuda": "minplus", "cuda_masked": "masked"}
 
 
 @dataclasses.dataclass
 class TRStats:
     """Convergence + integrity counters of one transitive-reduction run;
-    ``backend`` is the path that actually ran (``"reference"``/``"cuda"``)."""
+    ``backend`` is the path that actually ran: ``"cuda"`` (the dense
+    min-plus kernel), ``"cuda_masked"`` (the sampled min-plus kernel) or
+    ``"reference"`` (the torch-ops square)."""
 
     iterations: int
     nnz_initial: int
@@ -80,7 +87,7 @@ def _tr_impl(r: EllMatrix, fuzz: float, *, n_capacity: int, max_iters: int,
     fuzz = torch.tensor(fuzz, dtype=torch.float32, device=r.cols.device)
     nnz0 = int(r.nnz())
     prev, cur, it, ovf = -1, nnz0, 0, 0
-    path = "minplus" if fused and backend == "cuda" else "ell"
+    path = _PATHS.get(backend, "ell") if fused else "ell"
     while cur != prev and it < max_iters:
         with span("TrReduction.square", kind="step", iter=it, path=path,
                   nnz=cur):
@@ -96,6 +103,13 @@ def _tr_impl(r: EllMatrix, fuzz: float, *, n_capacity: int, max_iters: int,
                 safe = torch.where(r.mask, r.cols, 0).to(torch.int64)
                 rows = torch.arange(n, device=r.cols.device)[:, None]
                 vals_at_r = nd[rows, safe]
+                found = r.mask
+                step_ovf = 0
+            elif path == "masked":
+                # the sampled square in one launch: N at R's own pattern
+                masked = dispatch("spgemm_masked", "cuda")
+                vals_at_r = masked(r.cols, r.vals[MP], r.cols, r.vals[MP],
+                                   r.cols)
                 found = r.mask
                 step_ovf = 0
             elif fused:
@@ -139,10 +153,10 @@ def transitive_reduction_fused(r: EllMatrix, fuzz: float = 200.0, *,
                                max_iters: int = 10, backend: str = "reference"
                                ) -> Tuple[EllMatrix, TRStats]:
     """Sampled-square variant; ``backend="cuda"`` squares on the dense
-    min-plus kernel while n ≤ ``TR_DENSE_MAX_ROWS`` and records the ELL
-    fallback above it in ``TRStats.backend``."""
+    min-plus kernel while n ≤ ``TR_DENSE_MAX_ROWS`` and on the sampled
+    min-plus kernel above it (``TRStats.backend`` ``"cuda_masked"``)."""
     b = resolve_backend(backend, r.cols.device)
     if b == "cuda" and r.cols.shape[0] > TR_DENSE_MAX_ROWS:
-        b = "reference"
+        b = "cuda_masked"
     return _tr_impl(r, fuzz, n_capacity=1, max_iters=max_iters, fused=True,
                     backend=b)

@@ -5,6 +5,8 @@
   pileup/  — banded pileup + majority vote (Consensus)
   spgemm/  — ring-SUMMA local SpGEMM stages (SpGEMM and the distributed
              transitive reduction under ``distribution="shard_map"``)
+  spgemm_masked/ — sampled min-plus product at R's pattern (TrReduction
+             above ``TR_DENSE_MAX_ROWS``)
   cc/      — hook/shortcut connected-components rounds, a whole
              ``core.components.connected_components`` call in one launch
 
@@ -24,11 +26,17 @@ from .pileup import KERNEL as _PILEUP
 from .pileup import pileup_vote, pileup_vote_ref  # noqa: F401
 from .spgemm import KERNEL as _SPGEMM
 from .spgemm import spgemm_ring_stages, spgemm_ring_stages_ref  # noqa: F401
+from .spgemm_masked import KERNEL as _SPGEMM_MASKED
+from .spgemm_masked import (  # noqa: F401
+    spgemm_masked_minplus,
+    spgemm_masked_minplus_ref,
+)
 from .xdrop import KERNEL as _XDROP
 from .xdrop import xdrop_extend_batch, xdrop_extend_batch_ref  # noqa: F401
 
 #: every kernel of the port, by name
-KERNELS = {k.name: k for k in (_XDROP, _MINPLUS, _PILEUP, _SPGEMM, _CC)}
+KERNELS = {k.name: k for k in (_XDROP, _MINPLUS, _PILEUP, _SPGEMM,
+                                _SPGEMM_MASKED, _CC)}
 
 
 def launch_counts() -> Dict[str, int]:

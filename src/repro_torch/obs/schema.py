@@ -128,9 +128,10 @@ _SPECS: Tuple[MetricSpec, ...] = (
     _c("n_contained", "reads", "reads dropped as contained"),
     # --- TrReduction (TRStats flattened) ---
     _c("tr_iterations", "iterations", "Algorithm 2 passes to fixed point"),
-    _l("tr_backend", "TR path that actually ran (cuda|reference; "
-       "surfaces the dense-cap silent downgrade; ring_cuda|ring_reference|"
-       "allgather on a grid of several ranks)"),
+    _l("tr_backend", "TR path that actually ran (cuda: the dense min-plus "
+       "kernel, n <= TR_DENSE_MAX_ROWS; cuda_masked: the sampled min-plus "
+       "kernel above it; reference: the torch-ops ELL square; "
+       "ring_cuda|ring_reference|allgather on a grid of several ranks)"),
     _c("tr_overflow", "rows", "rows overflowing the sampled-square capacity"),
     # the port's own: Algorithm 2 on the grid (core/summa.py)
     _c("tr_exchange_words", "words",

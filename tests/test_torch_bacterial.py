@@ -116,3 +116,34 @@ def test_bacterial_phase_rehearses_on_the_cpu(cs, monkeypatch):
     assert "bacterial" not in by["cc"]
     assert phase["n_reads"] == 45 and phase["n_contigs"] >= 1
     assert phase["draft_identity"] <= phase["polished_identity"]
+
+
+def test_bacterial_phase_rehearses_the_sampled_tr_on_the_cpu(cs, monkeypatch):
+    """Phase 6b above TR_DENSE_MAX_ROWS (cut to 16 rows here): the TR squares
+    through the ``spgemm_masked`` op once an iteration on both paths, and
+    its first and last squares are held to the plain version and the torch
+    square."""
+    from repro_torch.core import transitive_reduction as ttr
+
+    records = [{"name": n} for n in cs.KERNEL_NAMES]
+    monkeypatch.setattr(cs, "BACTERIAL_KB", 0.8)
+    monkeypatch.setattr(cs, "simulate", _short_reads)
+    monkeypatch.setattr(ttr, "TR_DENSE_MAX_ROWS", 16)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # small ops: a thread pool only contends
+    try:
+        phase = cs.bacterial_phase(types.SimpleNamespace(seed=0), cs.check,
+                                   records, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    by = {r["name"]: r for r in records}
+    assert by["minplus"]["bacterial"][0]["input"].endswith(
+        "the sampled square")
+    entries = by["spgemm_masked"]["bacterial"]
+    assert [e["input"].split(",")[1] for e in entries] == [
+        " first iteration's R: 45 rows x 40 slots", " last iteration's R: "
+        "45 rows x 40 slots"]
+    for e in entries:
+        assert e["max_abs_err"] == 0 and e["plain_ms"] > 0
+        assert e["bound_ms"] > 0 and e["bound_by"] in ("bytes", "operations")
+    assert phase["n_reads"] == 45 and phase["n_contigs"] >= 1

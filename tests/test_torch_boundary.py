@@ -17,6 +17,7 @@ from repro_torch.kernels import (
     cc_rounds,
     minplus_matmul,
     pileup_vote,
+    spgemm_masked_minplus,
     xdrop_extend_batch,
 )
 
@@ -73,7 +74,8 @@ def test_port_import_pulls_in_no_jax():
     assert r.stdout.strip() == "[]"
 
 
-@pytest.mark.parametrize("which", ["xdrop", "minplus", "pileup", "cc"])
+@pytest.mark.parametrize("which", ["xdrop", "minplus", "pileup", "cc",
+                                   "spgemm_masked"])
 def test_kernel_wrapper_raises_on_non_cpu_request(which):
     """Tensors that are not on the CPU go to the kernel or raise: here they
     lie on the ``meta`` device, which no kernel takes."""
@@ -87,6 +89,10 @@ def test_kernel_wrapper_raises_on_non_cpu_request(which):
         elif which == "minplus":
             a = torch.empty(8, 8, 4, dtype=torch.float32, **m)
             minplus_matmul(a, a)
+        elif which == "spgemm_masked":
+            c = torch.empty(8, 4, **i32)
+            v = torch.empty(8, 4, 4, dtype=torch.float32, **m)
+            spgemm_masked_minplus(c, v, c, v, c)
         elif which == "cc":
             cc_rounds(torch.empty(4, 2, **i32), torch.empty(4, 1, **i32),
                       torch.empty(4, **i32), 8)

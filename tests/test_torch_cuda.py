@@ -21,6 +21,7 @@ from repro_torch.core.semiring import (
 )
 from repro_torch.kernels.spgemm import ops as tops
 
+import _masked_cases
 import _pileup_cases
 
 pytestmark = pytest.mark.cuda
@@ -494,6 +495,91 @@ def test_spgemm_occupancy_several_blocks_per_sm(card):
         for vcap, ka, kb in ((32768, 512, 64), (4, 1, 1), (10356, 512, 64)):
             assert gsize(sr, vcap, ka, kb) == tops.global_bytes(sr, vcap, ka,
                                                                 kb)
+
+
+# --- spgemm_masked: the sampled min-plus square of the fused TR -------------
+
+
+def _masked_same(card, a, b, mask):
+    """One launch of the kernel equals the port's torch ``spgemm_masked``
+    and the op's plain version, bit for bit; returns the result."""
+    from repro_torch.core.spgemm import spgemm_masked
+
+    want = spgemm_masked(a, b, mask, semiring=minplus_orient_semiring).vals[MP]
+    args = (a.cols, a.vals[MP], b.cols, b.vals[MP], mask.cols)
+    plain = K.spgemm_masked_minplus_ref(*args)
+    assert torch.equal(plain, want)
+    before = K.KERNELS["spgemm_masked"].launches
+    got = K.spgemm_masked_minplus(*(x.to(card) for x in args))
+    assert K.KERNELS["spgemm_masked"].launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    return got
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("case", _masked_cases.CASES)
+def test_spgemm_masked_kernel_matches_plain(card, case, seed):
+    a, b, mask = _masked_cases.operands(case, seed)
+    got = _masked_same(card, a, b, mask)
+    assert torch.isfinite(got).any()
+    assert torch.isinf(got[~mask.mask.to(card)]).all()
+
+
+def test_spgemm_masked_kernel_refuses_what_it_cannot_take(card):
+    a, b, _ = _masked_cases.operands("random", 0)
+    args = [x.to(card) for x in (a.cols, a.vals[MP], b.cols, b.vals[MP])]
+    with pytest.raises(ValueError, match="shared memory"):
+        K.spgemm_masked_minplus(*args, torch.full((40, 1500), -1,
+                                                  dtype=torch.int32,
+                                                  device=card))
+    with pytest.raises(ValueError, match="int32"):
+        K.spgemm_masked_minplus(*args, a.cols.to(card).long())
+    empty = K.spgemm_masked_minplus(*(x[:0] for x in args[:2]), *args[2:],
+                                    a.cols[:0].to(card))
+    assert empty.shape == (0, a.capacity, 4)
+
+
+def test_spgemm_masked_kernel_on_every_tr_iteration_of_a_cell_sized_r(card):
+    """An assembly of the benchmark's one-card cell (14,863 reads, K_R = 40)
+    on the card: every TR iteration squares its R through the kernel, and
+    each launch equals the torch ``spgemm_masked`` on the same R."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.core import backend as B
+    from repro_torch.core.spgemm import spgemm_masked
+    from repro_torch.core.spmat import EllMatrix
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from portbench.harness import load_cell
+    from portbench.readgen import make_reads
+
+    _, _, config, traffic = load_cell("hsapiens-gspmd.pb-d10-l7401")
+    reads = make_reads(config["genome_length"], traffic, 2**31 + 7,
+                       device=card)
+    cfg = PipelineConfig(**config["pipeline"],
+                         distribution=config["distribution"], device="cuda")
+    seen = []
+
+    def checked(a_cols, a_vals, b_cols, b_vals, m_cols):
+        got = K.spgemm_masked_minplus(a_cols, a_vals, b_cols, b_vals, m_cols)
+        r = EllMatrix(cols=a_cols, vals={MP: a_vals}, n_cols=a_cols.shape[0])
+        want = spgemm_masked(r, r, r, semiring=minplus_orient_semiring)
+        seen.append((int(r.nnz()), torch.equal(got, want.vals[MP])))
+        return got
+
+    B.register_op("spgemm_masked", "cuda", checked)
+    try:
+        res = assemble(reads.codes, reads.lengths, cfg)
+    finally:
+        B.register_op("spgemm_masked", "cuda", K.spgemm_masked_minplus)
+    assert reads.n_reads > 4096
+    assert res.stats["tr_backend"] == "cuda_masked"
+    assert res.stats["tr_overflow"] == 0
+    assert len(seen) == res.stats["tr_iterations"] >= 2
+    assert all(same for _, same in seen), seen
+    assert seen[0][0] == res.stats["nnz_R"]
 
 
 def test_assemble_on_card_matches_reference_backend(card):

@@ -21,7 +21,15 @@ from repro_torch.core import spgemm as tsg
 from repro_torch.core import spmat as tsp
 from repro_torch.core import transitive_reduction as ttr
 from repro_torch.core.semiring import MP
-from repro_torch.kernels import minplus_matmul, minplus_matmul_ref
+from repro_torch.core.backend import dispatch, register_op
+from repro_torch.kernels import (
+    minplus_matmul,
+    minplus_matmul_ref,
+    spgemm_masked_minplus,
+    spgemm_masked_minplus_ref,
+)
+
+import _masked_cases
 
 # repro.core re-exports functions under these module names
 jsg = importlib.import_module("repro.core.spgemm")
@@ -112,13 +120,72 @@ def test_transitive_reduction_matches_jax(seed):
 
 
 def test_tr_dense_cap_downgrade(monkeypatch):
-    """Above TR_DENSE_MAX_ROWS the cuda backend falls back to the ELL square
-    and says so in TRStats.backend, as the JAX package does."""
+    """Above TR_DENSE_MAX_ROWS the cuda backend leaves the dense square for
+    the sampled min-plus kernel and says so in TRStats.backend; S is the
+    reference backend's."""
     rp = _port(_string_graph(5))
     monkeypatch.setattr(ttr, "TR_DENSE_MAX_ROWS", 8)
     s, st = ttr.transitive_reduction_fused(rp, fuzz=60.0, backend="cuda")
     ref, _ = ttr.transitive_reduction_fused(rp, fuzz=60.0, backend="reference")
-    assert st.backend == "reference" and tsp.ell_equal(s, ref)
+    assert st.backend == "cuda_masked" and tsp.ell_equal(s, ref)
+
+
+def _jax(m):
+    """The port's min-plus ELL matrix as JAX's."""
+    return jsp.EllMatrix(cols=jnp.asarray(m.cols.numpy()),
+                         vals=jnp.asarray(m.vals[MP].numpy()), n_cols=m.n_cols)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("case", _masked_cases.CPU_CASES)
+def test_spgemm_masked_op_plain_matches_core_and_jax(case, seed):
+    """The ``spgemm_masked`` op's plain version (what the kernel is held to
+    on the card) equals the port's torch ``spgemm_masked`` and JAX's, bit
+    for bit, through both registrations of the dispatch seam."""
+    ap, bp, mp = _masked_cases.operands(case, seed)
+    if case == "wide_k_rows":
+        assert int(bp.row_nnz().max()) > 32
+    if case == "full_rows":
+        assert bool(ap.mask[[1, 5, 35]].all())
+    args = (ap.cols, ap.vals[MP], bp.cols, bp.vals[MP], mp.cols)
+    got = spgemm_masked_minplus_ref(*args)
+    core = tsg.spgemm_masked(ap, bp, mp, semiring=tsr.minplus_orient_semiring)
+    jn = jsg.spgemm_masked(_jax(ap), _jax(bp), _jax(mp),
+                           semiring=jsr.minplus_orient_semiring)
+    assert got.shape == (mp.n_rows, mp.capacity, 4)
+    assert torch.equal(got, core.vals[MP])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jn.vals))
+    assert torch.isinf(got[~mp.mask]).all()
+    for backend in ("cuda", "reference"):
+        assert torch.equal(dispatch("spgemm_masked", backend)(*args), got)
+    assert torch.equal(spgemm_masked_minplus(*args), got)
+
+
+@pytest.mark.parametrize("seed", [11, 12, 13])
+def test_tr_through_masked_op_matches_jax(monkeypatch, seed):
+    """The fused TR above TR_DENSE_MAX_ROWS on the cuda backend squares once
+    an iteration through the ``spgemm_masked`` op (its plain version on CPU
+    tensors) and gives JAX's fused TR: S, iterations and nnz."""
+    r = _string_graph(seed)
+    rp = _port(r)
+    js, jst = jtr.transitive_reduction_fused(r, fuzz=60.0, backend="reference")
+    calls = []
+
+    def spy(*args):
+        calls.append(args[0].shape)
+        return spgemm_masked_minplus(*args)
+
+    monkeypatch.setattr(ttr, "TR_DENSE_MAX_ROWS", 8)
+    register_op("spgemm_masked", "cuda", spy)
+    try:
+        ts, tst = ttr.transitive_reduction_fused(rp, fuzz=60.0, backend="cuda")
+    finally:
+        register_op("spgemm_masked", "cuda", spgemm_masked_minplus)
+    assert tst.backend == "cuda_masked"
+    assert len(calls) == tst.iterations
+    assert tsp.ell_equal(_port(js), ts)
+    assert (tst.iterations, tst.nnz_initial, tst.nnz_final) == (
+        int(jst.iterations), int(jst.nnz_initial), int(jst.nnz_final))
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 8, 8), (33, 17, 20), (65, 33, 47)])

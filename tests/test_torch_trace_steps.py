@@ -128,7 +128,8 @@ def test_step_spans_nest_under_their_stage(runs, stage):
         assert labels == STEPS[stage] * iters
         assert [sp.attrs["iter"] for sp in steps] == [
             i for i in range(iters) for _ in range(2)]
-        path = "minplus" if runs["traced"].stats["tr_backend"] == "cuda" else "ell"
+        path = {"cuda": "minplus", "cuda_masked": "masked",
+                "reference": "ell"}[runs["traced"].stats["tr_backend"]]
         assert {sp.attrs["path"] for sp in steps} == {path}
     else:
         assert labels == STEPS[stage]
