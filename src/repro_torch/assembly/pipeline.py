@@ -411,10 +411,9 @@ def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
                                  max_iters=cfg.tr_max_iters, backend=backend)
         sp.set_output(s_mat.cols)
     metrics.emit("tr_iterations", int(tr_stats.iterations))
-    # the path that ran: the fused variant's "cuda" squares on the dense
-    # kernel up to TR_DENSE_MAX_ROWS and is "cuda_masked" above it; the
-    # grid's is "ring_cuda" or "ring_reference" (or "allgather" where the
-    # grid forms no ring)
+    # the square that ran, as named where it is chosen: one card's in
+    # core/transitive_reduction._square_for, the grid's in
+    # core/summa.transitive_reduction_shard_map
     metrics.emit("tr_backend", tr_stats.backend)
     metrics.emit("tr_overflow", int(tr_stats.n_overflow))
     metrics.emit_many(tr_exchange)

@@ -31,9 +31,10 @@ over a ``("data", "model")`` mesh; here each rank of a
   Non-square grids and grid rows on two axes route to
   :func:`summa_allgather`, recorded in stats.
 * :func:`dist_transitive_reduction_ring` and
-  :func:`dist_transitive_reduction` are Algorithm 2 on the grid, with the
-  square N = R² on the ring or on all-gathered panels, the row max reduced
-  over the grid row and the prune local (§V-D).
+  :func:`dist_transitive_reduction` are Algorithm 2 on the grid: the one
+  loop of ``core.transitive_reduction``, handed the square N = R² on the
+  ring or on all-gathered panels, the row max reduced over the grid row
+  and the prune local (§V-D).
 * :func:`overlap_spgemm_shard_map` and
   :func:`transitive_reduction_shard_map` are the overlap and the
   TrReduction stages' ``distribution="shard_map"`` entry points.
@@ -51,10 +52,10 @@ import torch
 
 from .backend import dispatch, resolve_backend
 from .grid import ProcessGrid, resolve_grid, resolve_row_axes
-from .semiring import INF, MP, Semiring, minplus_orient_semiring as MPSR
+from .semiring import MP, Semiring, minplus_orient_semiring as MPSR
 from .spgemm import spgemm, spgemm_masked
-from .spmat import EllMatrix, NO_COL, from_coo, merge_sorted_rows, prune
-from .transitive_reduction import TRStats
+from .spmat import EllMatrix, NO_COL, from_coo, merge_sorted_rows
+from .transitive_reduction import TRStats, reduction_loop
 from ..obs import schema, span, validated
 
 _I32 = torch.int32
@@ -562,21 +563,18 @@ def _nnz(d: DistEll, cols: torch.Tensor) -> int:
     return int(d.grid.psum(local, (*d.row_axes, "model"))[0])
 
 
-def _prune_step(grid: ProcessGrid, r: EllMatrix, got: torch.Tensor,
-                found: torch.Tensor, fuzz: torch.Tensor) -> EllMatrix:
-    """Lines 5–9 of Algorithm 2 on the rank's block, local per §V-D: the
-    fuzzed row max (a ``pmax`` over the grid row), the transitive combos
-    ``N ≤ max`` and the prune of R ∘ ¬I."""
-    v = r.vals[MP]
-    vals_m = torch.where(torch.isfinite(v), v, -INF)
-    vals_m = torch.where((r.cols >= 0)[:, :, None], vals_m, -INF)
-    row_max = grid.pmax(torch.amax(vals_m, dim=(1, 2)), "model") + fuzz
-    trans = ((got <= row_max[:, None, None]) & torch.isfinite(got)
-             & found[:, :, None] & torch.isfinite(v))
-    new_vals = torch.where(trans, INF, v)
-    dead = ~torch.any(torch.isfinite(new_vals), dim=-1) & (r.cols >= 0)
-    return prune(EllMatrix(cols=r.cols, vals={MP: new_vals}, n_cols=r.n_cols),
-                 dead, MPSR)
+def _grid_row_max(grid: ProcessGrid, row_max: torch.Tensor) -> torch.Tensor:
+    """Algorithm 2's row max of a block, reduced over its grid row."""
+    return grid.pmax(row_max, "model")
+
+
+def _grid_loop(r: DistEll, square, path: str, fuzz: float, max_iters: int
+               ) -> Tuple[EllMatrix, TRStats]:
+    """Algorithm 2's one loop on the rank's block of ``r``: nnz summed over
+    the grid, the row max reduced over the grid row, the prune local."""
+    return reduction_loop(r.mat, square, path, fuzz=fuzz, max_iters=max_iters,
+                          nnz=lambda m: _nnz(r, m.cols),
+                          row_max=lambda x: _grid_row_max(r.grid, x))
 
 
 def dist_transitive_reduction_ring(r: DistEll, fuzz: float = 200.0, *,
@@ -586,49 +584,36 @@ def dist_transitive_reduction_ring(r: DistEll, fuzz: float = 200.0, *,
     """Distributed Algorithm 2 with the N = R² square on the explicit
     exchange ring.  Returns ``(DistEll, iters, nnz, stats)``.
 
-    Each pass is one :func:`summa_ring` (min-plus orientation semiring,
-    ``n_block_capacity`` slots per N block, default ``min(K², 4K)``) and
-    the lookup of N at R's pattern, under the step span
-    ``TrReduction.square``, followed by the local prune step under
-    ``TrReduction.prune`` (both with ``iter`` and ``path="ring"``, as the
-    local TR's steps); the loop ends when the global nnz stops changing.
+    The square of each pass is one :func:`summa_ring` (min-plus orientation
+    semiring, ``n_block_capacity`` slots per N block, default
+    ``min(K², 4K)``) and the lookup of N at R's pattern; the loop is
+    ``core.transitive_reduction.reduction_loop`` with ``path="ring"``.
     Stats accumulate the rings' exchange words and rounds, and carry
     ``n_overflow`` (the products N's blocks dropped, summed over the
     passes: a product dropped can leave a transitive edge unpruned),
     ``nnz_initial`` and ``summa_backend`` (what squared the blocks)."""
-    grid = r.grid
-    kb = r.block_capacity
+    grid, row_axes = r.grid, r.row_axes
     if n_block_capacity is None:
-        n_block_capacity = min(kb * kb, 4 * kb)
-    dev = r.mat.cols.device
-    fuzz_t = torch.tensor(fuzz, dtype=torch.float32, device=dev)
-    cur = r
-    nnz_cur = _nnz(r, r.mat.cols)
-    prev, it = -1, 0
-    ovf = torch.zeros((), dtype=_I32, device=dev)
+        n_block_capacity = min(r.block_capacity ** 2, 4 * r.block_capacity)
     stats: Dict = {**schema.zero_defaults("summa_exchange"),
-                   "summa_algorithm": None, "summa_backend": "reference",
-                   "nnz_initial": nnz_cur}
-    while nnz_cur != prev and it < max_iters:
-        with span("TrReduction.square", kind="step", iter=it, path="ring",
-                  nnz=nnz_cur):
-            n_sq, step_ovf, st = summa_ring(
-                cur, cur, semiring=MPSR, out_block_capacity=n_block_capacity,
-                backend=backend, stage="TrReduction")
-            got, found = n_sq.mat.lookup(MPSR, cur.mat.cols)
-        with span("TrReduction.prune", kind="step", iter=it,
-                  path="ring") as sp:
-            pruned = _prune_step(grid, cur.mat, got[MP], found, fuzz_t)
-            cur = DistEll(mat=pruned, grid=grid, row_axes=r.row_axes)
-            prev, nnz_cur, it = nnz_cur, _nnz(r, pruned.cols), it + 1
-            sp.annotate(nnz=nnz_cur)
-        ovf = ovf + step_ovf
+                   "summa_algorithm": None, "summa_backend": "reference"}
+
+    def square(m: EllMatrix):
+        d = DistEll(mat=m, grid=grid, row_axes=row_axes)
+        n_sq, ovf, st = summa_ring(d, d, semiring=MPSR,
+                                   out_block_capacity=n_block_capacity,
+                                   backend=backend, stage="TrReduction")
         stats["exchange_words_summa"] += st["exchange_words_summa"]
         stats["exchange_rounds_summa"] += st["exchange_rounds_summa"]
         stats["summa_algorithm"] = st["summa_algorithm"]
         stats["summa_backend"] = st.get("summa_backend", "reference")
-    stats["n_overflow"] = int(ovf)
-    return cur, it, nnz_cur, stats
+        got, found = n_sq.mat.lookup(MPSR, m.cols)
+        return got[MP], found, ovf
+
+    s, tr = _grid_loop(r, square, "ring", fuzz, max_iters)
+    stats.update(nnz_initial=tr.nnz_initial, n_overflow=tr.n_overflow)
+    return (DistEll(mat=s, grid=grid, row_axes=row_axes), tr.iterations,
+            tr.nnz_final, stats)
 
 
 def transitive_reduction_shard_map(r: EllMatrix, fuzz: float = 200.0, *,
@@ -666,6 +651,9 @@ def transitive_reduction_shard_map(r: EllMatrix, fuzz: float = 200.0, *,
     sd, iters, nnz, st = dist_transitive_reduction_ring(
         rd, fuzz, n_block_capacity=n_block_capacity, max_iters=max_iters,
         backend=backend)
+    # the ring squared on the kernel or its plain version, or fell back
+    path = ("allgather" if st["summa_algorithm"] != "ring"
+            else f"ring_{st['summa_backend']}")
     with span("TrReduction", kind="phase", phase="collect") as sp:
         g = collect(sd)
         mc, mv, mo = merge_sorted_rows(g.cols, g.vals, capacity=r.capacity,
@@ -673,8 +661,6 @@ def transitive_reduction_shard_map(r: EllMatrix, fuzz: float = 200.0, *,
         s_mat = EllMatrix(cols=mc[:n], vals=_tree(mv, lambda v: v[:n]),
                           n_cols=r.n_cols)
         sp.set_output(s_mat.cols)
-    path = ("allgather" if st["summa_algorithm"] != "ring"
-            else f"ring_{st['summa_backend']}")
     tr_stats = TRStats(iterations=iters, nnz_initial=st["nnz_initial"],
                        nnz_final=nnz,
                        n_overflow=st["n_overflow"] + int(ovf_d + mo),
@@ -713,35 +699,30 @@ def dist_transitive_reduction(r: DistEll, fuzz: float = 200.0, *,
             r, fuzz, n_block_capacity=n_block_capacity, max_iters=max_iters)
         return out, iters, nnz
     grid, row_axes = r.grid, r.row_axes
-    kb = r.block_capacity
     if n_block_capacity is None:
-        n_block_capacity = min(kb * kb, 4 * kb)
+        n_block_capacity = min(r.block_capacity ** 2, 4 * r.block_capacity)
     n_total = r.mat.n_cols
 
+    def square(m: EllMatrix):
+        # the block row of R over "model", the block column over row_axes
+        a_loc, b_loc = (EllMatrix(
+            cols=grid.all_gather(m.cols, axes, dim=dim),
+            vals={MP: grid.all_gather(m.vals[MP], axes, dim=dim)},
+            n_cols=n_total) for axes, dim in (("model", 1), (row_axes, 0)))
+        if fused:
+            got = spgemm_masked(a_loc, b_loc, m, semiring=MPSR,
+                                row_chunk=row_chunk).vals
+            return got[MP], m.mask, 0
+        n_loc, ovf = spgemm(a_loc, b_loc, semiring=MPSR,
+                            capacity=n_block_capacity, row_chunk=row_chunk)
+        got, found = n_loc.lookup(MPSR, m.cols)
+        return got[MP], found, ovf
+
     def fn(r_cols, r_vals):
-        fuzz_t = torch.tensor(fuzz, dtype=torch.float32, device=r_cols.device)
         cur = EllMatrix(cols=r_cols, vals={MP: r_vals}, n_cols=n_total)
-        nnz_cur = _nnz(r, cur.cols)
-        prev, it = -1, 0
-        while nnz_cur != prev and it < max_iters:
-            ac = grid.all_gather(cur.cols, "model", dim=1)
-            av = grid.all_gather(cur.vals[MP], "model", dim=1)
-            bc = grid.all_gather(cur.cols, row_axes, dim=0)
-            bv = grid.all_gather(cur.vals[MP], row_axes, dim=0)
-            a_loc = EllMatrix(cols=ac, vals={MP: av}, n_cols=n_total)
-            b_loc = EllMatrix(cols=bc, vals={MP: bv}, n_cols=n_total)
-            if fused:
-                got = spgemm_masked(a_loc, b_loc, cur, semiring=MPSR,
-                                    row_chunk=row_chunk).vals
-                found = cur.mask
-            else:
-                n_loc, _ = spgemm(a_loc, b_loc, semiring=MPSR,
-                                  capacity=n_block_capacity,
-                                  row_chunk=row_chunk)
-                got, found = n_loc.lookup(MPSR, cur.cols)
-            cur = _prune_step(grid, cur, got[MP], found, fuzz_t)
-            prev, nnz_cur, it = nnz_cur, _nnz(r, cur.cols), it + 1
-        return cur.cols, cur.vals[MP], it, nnz_cur
+        s, tr = _grid_loop(DistEll(mat=cur, grid=grid, row_axes=row_axes),
+                           square, "allgather", fuzz, max_iters)
+        return s.cols, s.vals[MP], tr.iterations, tr.nnz_final
 
     if build_only:
         return fn

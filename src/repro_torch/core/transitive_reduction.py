@@ -3,28 +3,28 @@ semiring, in torch.
 
 The PyTorch counterpart of ``repro.core.transitive_reduction``:
 
-* ``transitive_reduction`` — paper-faithful: each round builds the full
-  two-hop matrix ``N = R²`` (capacity-bounded ELL square, overflow counted),
-  flags combos with ``N ≤ rowmax(R) + fuzz`` and prunes them, until nnz is
-  stable;
-* ``transitive_reduction_fused`` — the sampled square ``N∘pattern(R)``.
-  With the ``"cuda"`` backend the square is the dense min-plus kernel
-  (``minplus_dense`` op) on ``R.to_dense()``, sampled back at R's pattern,
-  while n ≤ ``TR_DENSE_MAX_ROWS``, and the sampled min-plus kernel
-  (``spgemm_masked`` op) on R's ELL above it; the ``"reference"`` backend
-  squares with the torch-ops ``spgemm_masked``.  ``TRStats.backend``
-  records the path that ran.
+* ``transitive_reduction`` — paper-faithful: each pass builds the whole
+  two-hop matrix ``N = R²`` (capacity-bounded ELL, overflow counted);
+* ``transitive_reduction_fused`` — the sampled square ``N∘pattern(R)``: on
+  the ``"cuda"`` backend the dense min-plus kernel (``minplus_dense``)
+  while n ≤ ``TR_DENSE_MAX_ROWS`` and the sampled one (``spgemm_masked``)
+  above it, else the torch-ops ``spgemm_masked``.
 
-The convergence loop is a host loop: each iteration reads nnz.  Each
-iteration opens two step spans, ``TrReduction.square`` and
-``TrReduction.prune`` (attributes ``iter``, ``path`` — ``"minplus"``,
-``"masked"`` or ``"ell"`` — and the nnz the loop holds).
+Algorithm 2 is one host loop, :func:`reduction_loop`: prune the combos
+with ``N ≤ rowmax(R) + fuzz`` until nnz is stable.  It is handed a square:
+one of the one-card squares below (picked by :func:`_square_for`, named in
+``TRStats.backend``), or the ring or all-gather square of
+``core/summa.py``.  Each pass opens two step spans,
+``TrReduction.square`` (row bound and square) and ``TrReduction.prune``
+(prune and nnz), with attributes ``iter``, ``path`` (``"minplus"``,
+``"masked"``, ``"ell"``, ``"ring"`` or ``"allgather"``) and the loop's nnz.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import functools
+from typing import Callable, Tuple
 
 import torch
 
@@ -38,9 +38,6 @@ from .spmat import EllMatrix, prune
 # operand per iteration (4096 rows ≈ 256 MB); the sampled square on R's ELL
 # takes over.
 TR_DENSE_MAX_ROWS = 4096
-
-# TRStats.backend of the fused TR -> the path its step spans carry
-_PATHS = {"cuda": "minplus", "cuda_masked": "masked"}
 
 
 @dataclasses.dataclass
@@ -57,80 +54,106 @@ class TRStats:
     backend: str = "reference"
 
 
-def row_max_suffix(r: EllMatrix) -> torch.Tensor:
-    """Per-row max finite suffix over all slots and combos (paper line 5)."""
+def _row_bound(r: EllMatrix, fuzz: torch.Tensor, row_max: Callable
+               ) -> torch.Tensor:
+    """Line 5: each row's max finite suffix over its live slots and combos,
+    reduced by ``row_max`` over the ranks that share the row, plus fuzz."""
     v = r.vals[MP]
-    vals = torch.where(torch.isfinite(v), v, -INF)
-    vals = torch.where(r.mask[:, :, None], vals, -INF)
-    return torch.amax(vals, dim=(1, 2))
+    vals = torch.where(torch.isfinite(v) & r.mask[:, :, None], v, -INF)
+    return row_max(torch.amax(vals, dim=(1, 2))) + fuzz
 
 
-def _transitive_combos(r: EllMatrix, n_at_r, found, v) -> torch.Tensor:
-    """Line 8: combo (a,b) of R[i,j] is transitive iff N[i,j][a,b] is
-    finite and ≤ v[i].  Returns (n, K, 4) bool."""
-    cond = (n_at_r <= v[:, None, None]) & torch.isfinite(n_at_r)
-    return (cond & found[:, :, None] & r.mask[:, :, None]
-            & torch.isfinite(r.vals[MP]))
-
-
-def _prune_combos(r: EllMatrix, transitive: torch.Tensor) -> EllMatrix:
-    """Set transitive combos to +inf, drop slots whose combos are all +inf
-    (paper line 9: R ← R ∘ ¬I) and recompact rows."""
-    new_vals = torch.where(transitive, INF, r.vals[MP])
+def _prune_transitive(r: EllMatrix, got: torch.Tensor, found: torch.Tensor,
+                      bound: torch.Tensor) -> EllMatrix:
+    """Lines 8–9: combo (a,b) of R[i,j] is transitive iff N[i,j][a,b] is
+    finite and ≤ ``bound[i]``; set those to +inf, drop the slots whose
+    combos are all +inf (R ← R ∘ ¬I) and recompact the rows."""
+    v = r.vals[MP]
+    trans = ((got <= bound[:, None, None]) & torch.isfinite(got)
+             & found[:, :, None] & r.mask[:, :, None] & torch.isfinite(v))
+    new_vals = torch.where(trans, INF, v)
     dead = ~torch.any(torch.isfinite(new_vals), dim=-1) & r.mask
-    r2 = EllMatrix(cols=r.cols, vals={MP: new_vals}, n_cols=r.n_cols)
-    return prune(r2, dead, SR)
+    return prune(EllMatrix(cols=r.cols, vals={MP: new_vals}, n_cols=r.n_cols),
+                 dead, SR)
 
 
-def _tr_impl(r: EllMatrix, fuzz: float, *, n_capacity: int, max_iters: int,
-             fused: bool, backend: str) -> Tuple[EllMatrix, TRStats]:
-    fuzz = torch.tensor(fuzz, dtype=torch.float32, device=r.cols.device)
-    nnz0 = int(r.nnz())
+def reduction_loop(r: EllMatrix, square: Callable, path: str,
+                   name: str = "reference", *, fuzz: float, max_iters: int,
+                   nnz: Callable = lambda m: int(m.nnz()),
+                   row_max: Callable = lambda x: x
+                   ) -> Tuple[EllMatrix, TRStats]:
+    """Algorithm 2 on R (one card's matrix, or a rank's block of it): prune
+    the transitive edges until ``nnz`` (the global count) stops changing or
+    ``max_iters`` passes ran.  ``square(r)`` gives N at R's slots
+    ``(n, K, 4)``, the found mask ``(n, K)`` and its overflow.  Returns S
+    and its ``TRStats`` (overflow summed, ``backend`` = ``name``)."""
+    fuzz_t = torch.tensor(fuzz, dtype=torch.float32, device=r.cols.device)
+    nnz0 = nnz(r)
     prev, cur, it, ovf = -1, nnz0, 0, 0
-    path = _PATHS.get(backend, "ell") if fused else "ell"
     while cur != prev and it < max_iters:
         with span("TrReduction.square", kind="step", iter=it, path=path,
                   nnz=cur):
-            v = row_max_suffix(r) + fuzz
-            if path == "minplus":
-                # dense square on the min-plus kernel, sampled at R's
-                # pattern: absent entries are +inf, the additive identity,
-                # so the dense contraction equals the sampled ELL one
-                minplus = dispatch("minplus_dense", "cuda")
-                dense = r.to_dense(SR)[MP]
-                nd = minplus(dense, dense)
-                n = r.cols.shape[0]
-                safe = torch.where(r.mask, r.cols, 0).to(torch.int64)
-                rows = torch.arange(n, device=r.cols.device)[:, None]
-                vals_at_r = nd[rows, safe]
-                found = r.mask
-                step_ovf = 0
-            elif path == "masked":
-                # the sampled square in one launch: N at R's own pattern
-                masked = dispatch("spgemm_masked", "cuda")
-                vals_at_r = masked(r.cols, r.vals[MP], r.cols, r.vals[MP],
-                                   r.cols)
-                found = r.mask
-                step_ovf = 0
-            elif fused:
-                vals_at_r = spgemm_masked(r, r, r, semiring=SR).vals[MP]
-                found = r.mask
-                step_ovf = 0
-            else:
-                n_full, step_ovf = spgemm(r, r, semiring=SR,
-                                          capacity=n_capacity)
-                got, found = n_full.lookup(SR, torch.where(r.mask, r.cols, -1))
-                vals_at_r = got[MP]
-                step_ovf = int(step_ovf)
+            bound = _row_bound(r, fuzz_t, row_max)
+            got, found, step_ovf = square(r)
         with span("TrReduction.prune", kind="step", iter=it,
                   path=path) as sp:
-            trans = _transitive_combos(r, vals_at_r, found, v)
-            r = _prune_combos(r, trans)
-            prev, cur, it, ovf = cur, int(r.nnz()), it + 1, ovf + step_ovf
+            r = _prune_transitive(r, got, found, bound)
+            prev, cur, it, ovf = cur, nnz(r), it + 1, ovf + step_ovf
             sp.annotate(nnz=cur)
     return r, TRStats(iterations=it, nnz_initial=nnz0, nnz_final=cur,
-                      n_overflow=ovf,
-                      backend=backend if fused else "reference")
+                      n_overflow=int(ovf), backend=name)
+
+
+# --- the one-card squares: (N at R's slots, found, overflow) -----------
+
+
+def _minplus_square(r: EllMatrix):
+    """The dense square on the min-plus kernel, sampled at R's pattern
+    (absent entries are +inf, the additive identity)."""
+    dense = r.to_dense(SR)[MP]
+    nd = dispatch("minplus_dense", "cuda")(dense, dense)
+    safe = torch.where(r.mask, r.cols, 0).to(torch.int64)
+    rows = torch.arange(r.cols.shape[0], device=r.cols.device)[:, None]
+    return nd[rows, safe], r.mask, 0
+
+
+def _masked_square(r: EllMatrix):
+    """The sampled square in one launch of the sampled min-plus kernel."""
+    got = dispatch("spgemm_masked", "cuda")(r.cols, r.vals[MP], r.cols,
+                                           r.vals[MP], r.cols)
+    return got, r.mask, 0
+
+
+def _sampled_square(r: EllMatrix):
+    """The sampled square in torch ops."""
+    return spgemm_masked(r, r, r, semiring=SR).vals[MP], r.mask, 0
+
+
+def _ell_square(r: EllMatrix, n_capacity: int):
+    """All of N = R² in ``n_capacity`` slots a row, looked up at R."""
+    n_full, ovf = spgemm(r, r, semiring=SR, capacity=n_capacity)
+    got, found = n_full.lookup(SR, torch.where(r.mask, r.cols, -1))
+    return got[MP], found, ovf
+
+
+def _square_for(r: EllMatrix, *, backend: str, fused: bool,
+                n_capacity: int | None = None):
+    """The one-card square and its names: ``(square, span path,
+    TRStats.backend)``.  The faithful TR squares in ELL (``n_capacity``
+    default min(K², 4K)) whatever the backend; the fused one on the
+    ``cuda`` backend squares densely up to ``TR_DENSE_MAX_ROWS`` (read at
+    call time) and on the sampled kernel above it."""
+    b = resolve_backend(backend, r.cols.device)
+    if not fused:
+        k = r.capacity
+        cap = min(k * k, 4 * k) if n_capacity is None else n_capacity
+        return (functools.partial(_ell_square, n_capacity=cap), "ell",
+                "reference")
+    if b != "cuda":
+        return _sampled_square, "ell", "reference"
+    if r.cols.shape[0] <= TR_DENSE_MAX_ROWS:
+        return _minplus_square, "minplus", "cuda"
+    return _masked_square, "masked", "cuda_masked"
 
 
 def transitive_reduction(r: EllMatrix, fuzz: float = 200.0, *,
@@ -141,12 +164,9 @@ def transitive_reduction(r: EllMatrix, fuzz: float = 200.0, *,
     (default min(K², 4K)).  ``backend`` is validated and ignored: the
     faithful path always runs the capacity-bounded ELL square, whose
     overflow accounting is part of its contract."""
-    k = r.capacity
-    if n_capacity is None:
-        n_capacity = min(k * k, 4 * k)
-    resolve_backend(backend, r.cols.device)
-    return _tr_impl(r, fuzz, n_capacity=n_capacity, max_iters=max_iters,
-                    fused=False, backend="reference")
+    return reduction_loop(r, *_square_for(r, backend=backend, fused=False,
+                                          n_capacity=n_capacity),
+                          fuzz=fuzz, max_iters=max_iters)
 
 
 def transitive_reduction_fused(r: EllMatrix, fuzz: float = 200.0, *,
@@ -155,8 +175,5 @@ def transitive_reduction_fused(r: EllMatrix, fuzz: float = 200.0, *,
     """Sampled-square variant; ``backend="cuda"`` squares on the dense
     min-plus kernel while n ≤ ``TR_DENSE_MAX_ROWS`` and on the sampled
     min-plus kernel above it (``TRStats.backend`` ``"cuda_masked"``)."""
-    b = resolve_backend(backend, r.cols.device)
-    if b == "cuda" and r.cols.shape[0] > TR_DENSE_MAX_ROWS:
-        b = "cuda_masked"
-    return _tr_impl(r, fuzz, n_capacity=1, max_iters=max_iters, fused=True,
-                    backend=b)
+    return reduction_loop(r, *_square_for(r, backend=backend, fused=True),
+                          fuzz=fuzz, max_iters=max_iters)

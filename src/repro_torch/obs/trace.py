@@ -29,7 +29,9 @@ the span knows its own peak (``own_peak_hbm_bytes``).
 :meth:`Tracer.resolve` turns the events into each span's device interval
 on the host clock; :meth:`Tracer.clock_ns` puts host times on the clock
 ``torch.profiler`` stamps its CPU events with (``CLOCK_REALTIME``: a
-profile's ``ts`` plus its ``baseTimeNanoseconds``).
+profile's ``ts`` plus its ``baseTimeNanoseconds``), by the line through
+two anchor pairs, at activation and at resolve, as the profiler fits its
+own clock between its start and stop.
 
 Spans work with or without an active :class:`Tracer`: without one they
 still time and synchronise, they are just not recorded, and they record
@@ -139,6 +141,20 @@ class Span:
             yield from child.walk()
 
 
+def _anchor_pair() -> Tuple[float, int]:
+    """``(perf_counter s, CLOCK_REALTIME ns)`` at one instant: of a few
+    reads of the wall clock each bracketed by two ``perf_counter`` reads,
+    the tightest, with the middle of its bracket."""
+    best = None
+    for _ in range(5):
+        a = time.perf_counter()
+        wall = time.time_ns()
+        b = time.perf_counter()
+        if best is None or b - a < best[0]:
+            best = (b - a, 0.5 * (a + b), wall)
+    return best[1], best[2]
+
+
 _LAST_SUMMARY: Optional[Dict[str, Dict[str, Any]]] = None
 
 
@@ -176,18 +192,26 @@ class Tracer:
         self.cuda = device is not None and torch.device(device).type == "cuda"
         # the running maximum of every memory sample the spans took
         self.peak_hbm_bytes = 0
-        # (perf_counter s, CLOCK_REALTIME ns), read back to back
-        wall = time.time_ns()
-        self.anchor: Tuple[float, int] = (time.perf_counter(), wall)
+        # (perf_counter s, CLOCK_REALTIME ns) at activation and at resolve
+        self.anchor: Tuple[float, int] = _anchor_pair()
+        self.end_anchor: Optional[Tuple[float, int]] = None
         self._activated = False
         self._device_anchor: Optional[Tuple[Any, float]] = None
         self._events: List[Tuple[Span, Any, Any]] = []
 
     def clock_ns(self, t: float) -> int:
         """A ``perf_counter`` time on ``torch.profiler``'s clock:
-        ``CLOCK_REALTIME`` nanoseconds."""
+        ``CLOCK_REALTIME`` nanoseconds.  Once resolved, on the line through
+        the anchor pairs of activation and resolve: the profiler maps its
+        own clock by the line through its start and its stop, so where the
+        wall clock is stepped while the region runs, the two maps move
+        together instead of parting by the steps taken since activation."""
         pc, wall = self.anchor
-        return wall + round((t - pc) * 1e9)
+        rate = 1.0
+        if self.end_anchor is not None and self.end_anchor[0] > pc:
+            pc1, wall1 = self.end_anchor
+            rate = (wall1 - wall) / ((pc1 - pc) * 1e9)
+        return wall + round((t - pc) * 1e9 * rate)
 
     def _activate(self) -> None:
         """On first activation: the host anchor pair and, on a CUDA device,
@@ -209,8 +233,7 @@ class Tracer:
             ev.record(torch.cuda.current_stream(self.device))
             ev.synchronize()
             self._device_anchor = (ev, 0.5 * (h0 + time.perf_counter()))
-        wall = time.time_ns()
-        self.anchor = (time.perf_counter(), wall)
+        self.anchor = _anchor_pair()
         if ann is not None:
             ann.__exit__(None, None, None)
 
@@ -284,9 +307,11 @@ class Tracer:
         """Give every closed span its device interval: on a CUDA device
         wait for the recorded events and place each on the host clock
         through the anchor event; elsewhere the device interval is the host
-        interval.  Drops the events, and publishes :meth:`summary` as
+        interval.  Drops the events, takes the second anchor pair of
+        :meth:`clock_ns`, and publishes :meth:`summary` as
         :func:`last_summary`.  Call it once the traced work is done."""
         global _LAST_SUMMARY
+        self.end_anchor = _anchor_pair()
         if self._events:
             torch.cuda.synchronize(self.device)
             ev_a, h_a = self._device_anchor

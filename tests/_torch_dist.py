@@ -398,22 +398,10 @@ def job_assemble(inputs):
     return out
 
 
-def _block_local_prune(grid, r, got, found, fuzz):
-    """A planted fault of the distributed TR's prune: the row maximum of
-    the rank's block alone, not reduced over the grid row."""
-    from repro_torch.core.semiring import INF, MP, minplus_orient_semiring
-    from repro_torch.core.spmat import EllMatrix, prune
-
-    v = r.vals[MP]
-    vals_m = torch.where(torch.isfinite(v) & (r.cols >= 0)[:, :, None], v,
-                         -INF)
-    row_max = torch.amax(vals_m, dim=(1, 2)) + fuzz
-    trans = ((got <= row_max[:, None, None]) & torch.isfinite(got)
-             & found[:, :, None] & torch.isfinite(v))
-    new_vals = torch.where(trans, INF, v)
-    dead = ~torch.any(torch.isfinite(new_vals), dim=-1) & (r.cols >= 0)
-    return prune(EllMatrix(cols=r.cols, vals={MP: new_vals}, n_cols=r.n_cols),
-                 dead, minplus_orient_semiring)
+def _block_local_row_max(grid, row_max):
+    """A planted fault of the distributed TR: the row maximum of the rank's
+    block alone, not reduced over the grid row."""
+    return row_max
 
 
 def job_tr_grid(inputs):
@@ -422,7 +410,7 @@ def job_tr_grid(inputs):
     ``transitive_reduction_shard_map`` on its R with N's blocks cut to
     ``inputs["small_capacity"]`` slots, and at the fuzz
     ``inputs["fault_fuzz"]`` without and with the planted fault of
-    :func:`_block_local_prune`."""
+    :func:`_block_local_row_max`."""
     from unittest import mock
 
     from repro_torch.assembly.pipeline import PipelineConfig, assemble
@@ -451,7 +439,7 @@ def job_tr_grid(inputs):
     out["small"] = tr(n_block_capacity=inputs["small_capacity"])
     fuzz = inputs["fault_fuzz"]
     out["sound"] = tr(fuzz=fuzz)
-    with mock.patch.object(S, "_prune_step", _block_local_prune):
+    with mock.patch.object(S, "_grid_row_max", _block_local_row_max):
         out["fault"] = tr(fuzz=fuzz)
     return out
 

@@ -22,6 +22,7 @@ from repro_torch.core import spmat as tsp
 from repro_torch.core import transitive_reduction as ttr
 from repro_torch.core.semiring import MP
 from repro_torch.core.backend import dispatch, register_op
+from repro_torch.obs import Tracer, tracing
 from repro_torch.kernels import (
     minplus_matmul,
     minplus_matmul_ref,
@@ -101,10 +102,69 @@ def test_masked_spgemm_and_transpose_match_jax(row_chunk):
     assert tsp.ell_equal(_port(jt), tt) and int(jo) == int(to)
 
 
-@pytest.mark.parametrize("seed", [11, 12, 13])
-def test_transitive_reduction_matches_jax(seed):
+def _traced_tr(fn, *args, **kwargs):
+    """``fn``'s result and its step spans: (label, iter, path, nnz)."""
+    with tracing(Tracer(memory=False)) as tr:
+        out = fn(*args, **kwargs)
+    return out, [(sp.label, sp.attrs["iter"], sp.attrs["path"],
+                  sp.attrs["nnz"]) for sp in tr.spans()
+                 if sp.attrs.get("kind") == "step"]
+
+
+def _one_loop_runs(rp, monkeypatch):
+    """Algorithm 2 on R through each square the one loop is handed: the
+    four one-card squares (the kernels' plain versions on CPU tensors) and
+    the all-gather square of a 1x1 grid, unfused and fused.  Gives
+    {path: (S, (iterations, nnz_initial, nnz_final, n_overflow), backend,
+    step spans)}."""
+    from repro_torch.core.grid import ProcessGrid
+    from repro_torch.core.summa import DistEll, dist_transitive_reduction
+
+    runs = {}
+    for path, fn, kw in [
+            ("minplus", ttr.transitive_reduction_fused, {"backend": "cuda"}),
+            ("masked", ttr.transitive_reduction_fused, {"backend": "cuda"}),
+            ("sampled", ttr.transitive_reduction_fused,
+             {"backend": "reference"}),
+            ("faithful", ttr.transitive_reduction, {})]:
+        if path == "masked":
+            monkeypatch.setattr(ttr, "TR_DENSE_MAX_ROWS", rp.n_rows - 1)
+        (s, st), steps = _traced_tr(fn, rp, fuzz=60.0, **kw)
+        monkeypatch.undo()
+        runs[path] = (s, (st.iterations, st.nnz_initial, st.nnz_final,
+                          st.n_overflow), st.backend, steps)
+    d = DistEll(mat=rp, grid=ProcessGrid(1, 1))
+    for path, fused in (("allgather", False), ("allgather_fused", True)):
+        (s, it, nnz), steps = _traced_tr(dist_transitive_reduction, d, 60.0,
+                                         fused=fused)
+        runs[path] = (s.mat, (it, int(rp.nnz()), nnz, 0), None, steps)
+    return runs
+
+
+@pytest.mark.parametrize("seed", [11, 12, 13, 5, 9])
+def test_transitive_reduction_matches_jax(monkeypatch, seed):
+    """The port's fused and faithful TR give JAX's; Algorithm 2's one loop
+    gives the same S, counters and steps whichever square it is handed."""
     r = _string_graph(seed)
     rp = _port(r)
+    # one loop, six squares: the same S, counters and steps; each step
+    # names its square
+    runs = _one_loop_runs(rp, monkeypatch)
+    s0, st0, _, steps0 = runs["faithful"]
+    assert st0[0] >= 2 and len(steps0) == 2 * st0[0]
+    want_path = {"minplus": "minplus", "masked": "masked", "sampled": "ell",
+                 "faithful": "ell", "allgather": "allgather",
+                 "allgather_fused": "allgather"}
+    for path, (s, st, backend, steps) in runs.items():
+        assert tsp.ell_equal(s, s0) and st == st0, path
+        assert [(lb, i, n) for lb, i, _, n in steps] == [
+            (lb, i, n) for lb, i, _, n in steps0], path
+        assert {p for _, _, p, _ in steps} == {want_path[path]}
+    assert [steps0[k][0] for k in range(2)] == ["TrReduction.square",
+                                                "TrReduction.prune"]
+    assert {p: b for p, (_, _, b, _) in runs.items() if b} == {
+        "minplus": "cuda", "masked": "cuda_masked", "sampled": "reference",
+        "faithful": "reference"}
     js, jst = jtr.transitive_reduction_fused(r, fuzz=60.0, backend="reference")
     for backend in ("reference", "cuda"):
         ts, tst = ttr.transitive_reduction_fused(rp, fuzz=60.0, backend=backend)

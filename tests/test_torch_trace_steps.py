@@ -532,6 +532,30 @@ def test_chrome_export_puts_host_and_device_on_the_shared_clock():
     assert names == {"host", "device"}
 
 
+def test_clock_follows_a_wall_clock_stepped_between_its_anchors(monkeypatch):
+    """The wall clock is stepped 5 ms forward while a traced region runs.
+    The profiler maps its clock by the line through its start and its
+    stop; ``clock_ns`` takes the line through its anchor pairs of
+    activation and resolve, so host times fall on the profiler's line and
+    not up to the step off it."""
+    real = time.time_ns
+    step = [0]
+    monkeypatch.setattr(time, "time_ns", lambda: real() + step[0])
+    tr = Tracer(memory=False)
+    with tracing(tr):
+        with span("Stage", kind="stage"):
+            time.sleep(0.002)
+            step[0] = 5_000_000
+            time.sleep(0.002)
+    (pc0, w0) = tr.anchor
+    assert tr.end_anchor is None
+    tr.resolve()
+    (pc1, w1) = tr.end_anchor
+    assert abs(w1 - w0 - (pc1 - pc0) * 1e9 - 5e6) < 0.5e6  # the step
+    assert tr.clock_ns(pc0) == w0 and abs(tr.clock_ns(pc1) - w1) <= 1
+    assert abs(tr.clock_ns(0.5 * (pc0 + pc1)) - 0.5 * (w0 + w1)) <= 1
+
+
 def test_span_failing_enter_sample_resets_nothing(monkeypatch, fake_card):
     def boom(device=None):
         raise RuntimeError("sampling failed")
