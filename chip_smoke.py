@@ -18,8 +18,8 @@ exit, no result line) on any check that does not hold:
              runs: n <= TR_DENSE_MAX_ROWS = 4096; phase 6b is the size users
              assemble).
              The launch counts are set to 0 just before and read just
-             after: every kernel of the path (xdrop, minplus, pileup) must
-             have run;
+             after: every kernel of the path (xdrop, minplus, pileup,
+             kmer_pack) must have run, kmer_pack exactly once;
 3a. traced — the same reads through ``assemble(trace=True)``: R, S, the
              stats and the polished contigs must equal phase 3's; the span
              roots must be the eight stages in order, each with the
@@ -70,7 +70,13 @@ exit, no result line) on any check that does not hold:
              bin passes (two launches and a device cumsum) and the vote
              launch.  spgemm_masked (the TR's sampled square above
              TR_DENSE_MAX_ROWS) is held on phase 3's R, against its plain
-             version and the torch ``spgemm_masked``;
+             version and the torch ``spgemm_masked``.  kmer_pack
+             (CountKmer's extraction) is held on the benchmark's one-card
+             cell's reads (``portbench``'s generator from ``--seed``:
+             14,863 reads x 13,216 columns, k 15), its time beside its
+             byte bound (the codes read once, 13 bytes written an
+             instance) and the plain version's time there, and on phase
+             3's reads (a variant);
 4b. cc     — ``connected_components(backend="cuda")`` on three inputs: the
              state graphs ``expand_states`` of phase 3's S (its launch
              counts, set to 0 just before, are the cc record's) and R, and
@@ -102,11 +108,12 @@ exit, no result line) on any check that does not hold:
              23), nothing cut.  Phases 1-6 return first: under 1 GB may be
              allocated when it starts.  ``assemble()`` traced, gspmd, its
              counts set to 0 just before and read just after: xdrop once per
-             ``align_chunk`` block of live pairs, pileup 3, minplus 0 and
+             ``align_chunk`` block of live pairs, pileup 3, kmer_pack 1,
+             minplus 0 and
              spgemm_masked once a TR iteration (n > TR_DENSE_MAX_ROWS:
              ``tr_backend == "cuda_masked"``, the sampled square); then
              shard_map on a 1×1 grid over a 1-rank NCCL group (as 3b's):
-             spgemm 1 (on ~416 M candidates), xdrop 1, pileup 3,
+             spgemm 1 (on ~416 M candidates), xdrop 1, pileup 3, kmer_pack 1,
              spgemm_masked once a TR iteration, and R, S, the stats (but
              path and exchange keys) and the polished contigs equal to the
              gspmd run's.  Each prints its
@@ -232,12 +239,13 @@ import subprocess
 import sys
 import time
 
-KERNEL_NAMES = ("xdrop", "minplus", "pileup", "spgemm", "spgemm_masked", "cc")
+KERNEL_NAMES = ("xdrop", "minplus", "pileup", "spgemm", "spgemm_masked", "cc",
+                "kmer_pack")
 # the kernels of each path: the single-device path does not run spgemm,
 # only connected_components runs cc, and spgemm_masked squares the TR only
-# above TR_DENSE_MAX_ROWS (phase 6b)
-GSPMD_KERNELS = ("xdrop", "minplus", "pileup")
-SHARD_MAP_KERNELS = ("xdrop", "minplus", "pileup", "spgemm")
+# above TR_DENSE_MAX_ROWS (phase 6b); kmer_pack runs once an assembly
+GSPMD_KERNELS = ("xdrop", "minplus", "pileup", "kmer_pack")
+SHARD_MAP_KERNELS = ("xdrop", "minplus", "pileup", "spgemm", "kmer_pack")
 REPLACES = {
     "xdrop": "src/repro/kernels/xdrop/xdrop.py:105",
     "minplus": "src/repro/kernels/minplus/minplus.py:54",
@@ -246,12 +254,15 @@ REPLACES = {
     # no Pallas kernel: the JAX package's TR squares wide graphs in array code
     "spgemm_masked": "src/repro/core/spgemm.py:spgemm_masked (no kernel)",
     "cc": "src/repro/kernels/cc/cc.py:66",
+    # no Pallas kernel: the JAX package extracts k-mers in array code
+    "kmer_pack": "src/repro/assembly/kmers.py:extract_kmers (no kernel)",
 }
 # the ``kernel`` attribute of each kernel's ``kernel_launch`` span: the
 # name the JAX package's spans give the same kernel
 SPAN_KERNEL = {"xdrop": "xdrop_extend", "minplus": "minplus_dense",
                "pileup": "pileup_vote", "spgemm": "spgemm_ring_stages",
-               "spgemm_masked": "spgemm_masked", "cc": "cc_labels"}
+               "spgemm_masked": "spgemm_masked", "cc": "cc_labels",
+               "kmer_pack": "kmer_pack"}
 STAGES = ["CountKmer", "CreateSpMat", "SpGEMM", "Alignment", "BuildR",
           "TrReduction", "Contigs", "Consensus"]
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; f32 add/min
@@ -621,6 +632,8 @@ def bacterial_phase(args, check, records, device: str = "cuda") -> dict:
               f"{st['n_aligned']} live pairs in {live_chunks} chunks")
         check(launches["pileup"] == 3,
               f"bacterial: {launches['pileup']} pileup launches")
+        check(launches["kmer_pack"] == 1,
+              f"bacterial: {launches['kmer_pack']} kmer_pack launches")
         check(launches["spgemm"] == 0 and all(
                   launches[k] == v for k, v in tr_launches.items()),
               f"bacterial: launches {launches} (the TR's dense kernel runs "
@@ -666,7 +679,7 @@ def bacterial_phase(args, check, records, device: str = "cuda") -> dict:
           + f"; launches {json.dumps(sm_launches)}", flush=True)
     if cuda:
         check(sm_launches["spgemm"] == 1 and sm_launches["xdrop"] == 1
-              and sm_launches["pileup"] == 3
+              and sm_launches["pileup"] == 3 and sm_launches["kmer_pack"] == 1
               and all(sm_launches[k] == v for k, v in tr_launches.items()),
               f"bacterial shard_map: launches {sm_launches}")
         check(ss["summa_backend"] == "cuda",
@@ -1967,6 +1980,8 @@ def kernel_phases(args):
     # one consensus call: the two bin passes and the vote launch
     check(launches["pileup"] == 3,
           f"{launches['pileup']} pileup launches for one consensus call")
+    check(launches["kmer_pack"] == 1,
+          f"{launches['kmer_pack']} kmer_pack launches for one assembly")
     live_chunks = -(-max(st["n_aligned"], 1) // cfg.align_chunk)
     check(launches["xdrop"] == live_chunks,
           f"{launches['xdrop']} xdrop launches for {st['n_aligned']} live pairs "
@@ -2383,6 +2398,44 @@ def kernel_phases(args):
     records[-1]["input"] = (f"phase 3's R: {r.n_rows} rows x {r.capacity} "
                             f"slots, {mw['products']} products")
     del got, want, core, m_args
+
+    # kmer_pack: CountKmer's extraction at the benchmark's one-card cell
+    # (its reads from --seed: 14,863 x 13,216 columns, k 15), and on phase
+    # 3's reads (a variant).  Bound: the codes read once, 13 bytes written
+    # an instance (three int32 words and a bool)
+    from portbench.harness import load_cell
+    from portbench.readgen import make_reads
+
+    _, _, cell_cfg, cell_traffic = load_cell("hsapiens-gspmd.pb-d10-l7401")
+    cell = make_reads(cell_cfg["genome_length"], cell_traffic, args.seed,
+                      device="cuda")
+    km_cases = [("the one-card cell's reads", cell.codes,
+                 cell.lengths.to(torch.int32)),
+                ("phase 3's reads", torch.as_tensor(reads.codes).cuda(),
+                 torch.as_tensor(reads.lengths).to(torch.int32).cuda())]
+    km_recs = []
+    for label, kc, kl in km_cases:
+        kc, kl = kc.contiguous(), kl.contiguous()
+        got = K.kmer_pack(kc, kl, k=cfg.k)
+        want = K.kmer_pack_ref(kc, kl, k=cfg.k)
+        n_k, w_k = kc.shape
+        p_k = w_k - cfg.k + 1
+        record("kmer_pack", list(got), list(want),
+               lambda: K.kmer_pack(kc, kl, k=cfg.k),
+               lambda: K.kmer_pack_ref(kc, kl, k=cfg.k),
+               n_k * w_k + 13 * n_k * p_k, 0, I32_OPS_S, reps=20)
+        records[-1]["input"] = (f"{label}: {n_k} reads x {w_k} columns, "
+                                f"k {cfg.k}, {n_k * p_k} instances")
+        km_recs.append(records.pop())
+        del got, want
+    rec_k = km_recs[0]
+    rec_k["variants"] = [{key: km_recs[1][key] for key in (
+        "input", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}]
+    records.append(rec_k)
+    print(f"[kernels] kmer_pack at the cell's shape: {rec_k['ms']:.4f} ms, "
+          f"{rec_k['bound_ms'] / rec_k['ms'] * 100:.1f} % of its byte bound",
+          flush=True)
+    del cell, km_cases, kc, kl
 
     # pileup: the real consensus call, in three launches: the bin passes
     # (count, device cumsum, fill) and the vote launch

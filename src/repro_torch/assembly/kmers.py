@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.backend import dispatch, resolve_backend
 from ..obs import span
 
 COMPLEMENT = 3  # complement(code) = 3 - code
@@ -44,41 +45,22 @@ def revcomp(codes: torch.Tensor, length) -> torch.Tensor:
     return torch.where(idx >= 0, out, 0).to(torch.uint8)
 
 
-def _pack(c: torch.Tensor, k: int):
-    """Pack (..., k) int32 codes into (hi, lo) int32 words, 15 bases per
-    word, big-endian and left aligned."""
-    assert k <= 30, "k ≤ 30 supported (2×15 bases in int32)"
-    k_hi = min(k, 15)
-    hi = torch.zeros(c.shape[:-1], dtype=torch.int32, device=c.device)
-    for t in range(k_hi):
-        hi = hi * 4 + c[..., t]
-    hi = hi * (4 ** (15 - k_hi))
-    lo = torch.zeros(c.shape[:-1], dtype=torch.int32, device=c.device)
-    for t in range(k_hi, k):
-        lo = lo * 4 + c[..., t]
-    lo = lo * (4 ** (15 - max(0, k - 15)))
-    return hi, lo
-
-
-def extract_kmers(codes: torch.Tensor, lengths: torch.Tensor, *, k: int):
+def extract_kmers(codes: torch.Tensor, lengths: torch.Tensor, *, k: int,
+                  backend: str = "auto"):
     """All canonical k-mer instances of each read: a dict of (n, P) tensors,
     P = L_max − k + 1 — ``hi``, ``lo`` (packed canonical k-mer), ``strand``,
-    ``pos`` (start in the forward read) and ``valid``."""
+    ``pos`` (start in the forward read) and ``valid``.  The packing is the
+    ``kmer_pack`` op of ``backend`` (``kernels/kmer_pack``): one kernel
+    launch for CUDA tensors on the ``cuda`` backend, the plain torch version
+    otherwise; the step span's ``path`` says which ran."""
     n, lmax = codes.shape
     dev = codes.device
     p = lmax - k + 1
-    with span("CountKmer.extract", kind="step", instances=n * p):
+    b = resolve_backend(backend, dev)
+    path = "kernel" if b == "cuda" and dev.type == "cuda" else "torch"
+    with span("CountKmer.extract", kind="step", instances=n * p, path=path):
+        hi, lo, strand, valid = dispatch("kmer_pack", b, dev)(codes, lengths,
+                                                             k=k)
         pos = torch.arange(p, dtype=torch.int32, device=dev)
-        win = (pos[:, None]
-               + torch.arange(k, dtype=torch.int32, device=dev)[None, :])
-        w = codes[:, win.to(torch.int64)].to(torch.int32)  # (n, P, k)
-        fwd_hi, fwd_lo = _pack(w, k)
-        rc_hi, rc_lo = _pack(COMPLEMENT - torch.flip(w, dims=(-1,)), k)
-        fwd_smaller = (fwd_hi < rc_hi) | ((fwd_hi == rc_hi) & (fwd_lo <= rc_lo))
-        return {
-            "hi": torch.where(fwd_smaller, fwd_hi, rc_hi),
-            "lo": torch.where(fwd_smaller, fwd_lo, rc_lo),
-            "strand": (~fwd_smaller).to(torch.int32),
-            "pos": pos[None, :].expand(n, p),
-            "valid": pos[None, :] < (lengths.to(torch.int32)[:, None] - k + 1),
-        }
+        return {"hi": hi, "lo": lo, "strand": strand,
+                "pos": pos[None, :].expand(n, p), "valid": valid}

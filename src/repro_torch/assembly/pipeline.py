@@ -312,7 +312,7 @@ def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
 
     # --- CountKmer ---
     with _tic(timings, "CountKmer") as sp:
-        kmers = extract_kmers(codes, lengths, k=cfg.k)
+        kmers = extract_kmers(codes, lengths, k=cfg.k, backend=backend)
         kc = sp.set_output(
             count_and_select(kmers, lower=cfg.lower, upper=cfg.upper))
         del kmers

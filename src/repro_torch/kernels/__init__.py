@@ -9,6 +9,8 @@
              above ``TR_DENSE_MAX_ROWS``)
   cc/      — hook/shortcut connected-components rounds, a whole
              ``core.components.connected_components`` call in one launch
+  kmer_pack/ — canonical packed k-mers from the read codes (CountKmer's
+             extract step)
 
 Sources are ``repro_torch/csrc/<name>.cu``; ``build.py`` compiles and binds
 them.  Importing this package registers every kernel and its plain version
@@ -20,6 +22,8 @@ from typing import Dict
 
 from .cc import KERNEL as _CC
 from .cc import cc_labels_cuda, cc_labels_ref, cc_rounds, cc_rounds_ref  # noqa: F401
+from .kmer_pack import KERNEL as _KMER_PACK
+from .kmer_pack import kmer_pack, kmer_pack_ref  # noqa: F401
 from .minplus import KERNEL as _MINPLUS
 from .minplus import minplus_matmul, minplus_matmul_ref  # noqa: F401
 from .pileup import KERNEL as _PILEUP
@@ -36,7 +40,7 @@ from .xdrop import xdrop_extend_batch, xdrop_extend_batch_ref  # noqa: F401
 
 #: every kernel of the port, by name
 KERNELS = {k.name: k for k in (_XDROP, _MINPLUS, _PILEUP, _SPGEMM,
-                                _SPGEMM_MASKED, _CC)}
+                                _SPGEMM_MASKED, _CC, _KMER_PACK)}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -15,6 +15,7 @@ import torch
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import (
     cc_rounds,
+    kmer_pack,
     minplus_matmul,
     pileup_vote,
     spgemm_masked_minplus,
@@ -75,7 +76,7 @@ def test_port_import_pulls_in_no_jax():
 
 
 @pytest.mark.parametrize("which", ["xdrop", "minplus", "pileup", "cc",
-                                   "spgemm_masked"])
+                                   "spgemm_masked", "kmer_pack"])
 def test_kernel_wrapper_raises_on_non_cpu_request(which):
     """Tensors that are not on the CPU go to the kernel or raise: here they
     lie on the ``meta`` device, which no kernel takes."""
@@ -93,6 +94,8 @@ def test_kernel_wrapper_raises_on_non_cpu_request(which):
             c = torch.empty(8, 4, **i32)
             v = torch.empty(8, 4, 4, dtype=torch.float32, **m)
             spgemm_masked_minplus(c, v, c, v, c)
+        elif which == "kmer_pack":
+            kmer_pack(torch.empty(4, 40, **u8), torch.empty(4, **i32), k=15)
         elif which == "cc":
             cc_rounds(torch.empty(4, 2, **i32), torch.empty(4, 1, **i32),
                       torch.empty(4, **i32), 8)

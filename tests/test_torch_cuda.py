@@ -21,6 +21,7 @@ from repro_torch.core.semiring import (
 )
 from repro_torch.kernels.spgemm import ops as tops
 
+import _kmer_cases
 import _masked_cases
 import _pileup_cases
 
@@ -626,6 +627,115 @@ def test_assemble_shard_map_on_card_matches_gspmd(card):
     assert ell_equal(gs.r_graph, sm.r_graph) and ell_equal(gs.s_graph, sm.s_graph)
     assert [c.reads for c in gs.polished_contigs] == [
         c.reads for c in sm.polished_contigs]
+
+
+# --- kmer_pack: canonical packed k-mers from the read codes ------------------
+
+
+def _kmer_pack_same(card, codes, lens, k):
+    """One launch of the kernel equals the plain version bit for bit."""
+    c = torch.from_numpy(np.ascontiguousarray(codes)).to(card)
+    ln = torch.from_numpy(np.ascontiguousarray(lens)).to(card)
+    before = K.KERNELS["kmer_pack"].launches
+    got = K.kmer_pack(c, ln, k=k)
+    torch.cuda.synchronize()
+    assert K.KERNELS["kmer_pack"].launches == before + 1
+    want = K.kmer_pack_ref(c, ln, k=k)
+    for name, g, w in zip(("hi", "lo", "strand", "valid"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), name
+    return got
+
+
+@pytest.mark.parametrize("k", _kmer_cases.KS)
+@pytest.mark.parametrize("case", _kmer_cases.CASES)
+def test_kmer_pack_kernel_matches_plain(card, case, k):
+    codes, lens = _kmer_cases.reads(case, k)
+    _kmer_pack_same(card, codes, lens, k)
+
+
+@pytest.mark.parametrize("k", [15, 16, 21, 30])
+def test_kmer_pack_kernel_on_a_cell_sized_block(card, k):
+    """512 reads of the benchmark's one-card cell at its 13,216 columns,
+    half of them reverse-complemented (as the generator draws them)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from portbench.harness import load_cell
+    from portbench.readgen import make_reads
+
+    _, _, config, traffic = load_cell("hsapiens-gspmd.pb-d10-l7401")
+    reads = make_reads(config["genome_length"], traffic, 2**31 + 11,
+                       device=card)
+    codes = reads.codes[:512].contiguous()
+    lens = reads.lengths[:512].to(torch.int32).contiguous()
+    assert codes.shape[1] == 13216
+    strand = reads.truth_strand[:512]
+    assert 0 < int(strand.sum()) < 512
+    _kmer_pack_same(card, codes.cpu().numpy(), lens.cpu().numpy(), k)
+
+
+def test_kmer_pack_kernel_refuses_what_it_cannot_take(card):
+    codes, lens = _kmer_cases.reads("seeded", 15)
+    c = torch.from_numpy(codes).to(card)
+    ln = torch.from_numpy(lens).to(card)
+    before = K.KERNELS["kmer_pack"].launches
+    with pytest.raises(ValueError, match="codes must be torch.uint8"):
+        K.kmer_pack(c.to(torch.int32), ln, k=15)
+    with pytest.raises(ValueError, match="lengths must be torch.int32"):
+        K.kmer_pack(c, ln.long(), k=15)
+    with pytest.raises(ValueError, match="codes must be contiguous"):
+        K.kmer_pack(c[:, ::2], ln, k=15)
+    with pytest.raises(ValueError, match="k must lie in 1..30"):
+        K.kmer_pack(c, ln, k=31)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.kmer_pack(c, ln.cpu(), k=15)
+    assert K.KERNELS["kmer_pack"].launches == before
+    empty = K.kmer_pack(c[:0], ln[:0], k=15)
+    assert [tuple(x.shape) for x in empty] == [(0, codes.shape[1] - 14)] * 4
+    assert K.KERNELS["kmer_pack"].launches == before
+
+
+def test_assemble_on_card_packs_kmers_in_one_launch(card):
+    """``assemble()`` on the ``cuda`` backend: one ``kmer_pack`` launch, the
+    step span's ``path`` is ``"kernel"``, and CountKmer's outputs (the
+    packed instances and the counts) equal the ``reference`` backend's."""
+    from repro_torch.core import backend as B
+
+    genome = simulate_genome(np.random.default_rng(3), 20000)
+    rs = simulate_reads(genome, depth=10, mean_len=1000, std_len=150,
+                        error_rate=0.03, seed=4)
+    cfg = PipelineConfig(m_capacity=1 << 17, upper=40, read_capacity=96,
+                         band=33, xdrop=25, device="cuda", trace=True)
+    seen = []
+
+    def kept(codes, lengths, *, k):
+        out = K.kmer_pack(codes, lengths, k=k)
+        seen.append((out, K.kmer_pack_ref(codes, lengths, k=k)))
+        return out
+
+    B.register_op("kmer_pack", "cuda", kept)
+    try:
+        K.reset_launch_counts()
+        res = assemble(rs.codes, rs.lengths, cfg)
+        launches = K.launch_counts()
+    finally:
+        B.register_op("kmer_pack", "cuda", K.kmer_pack)
+    assert launches["kmer_pack"] == 1
+    (got, want), = seen
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    (ext,) = res.trace.find("CountKmer.extract")
+    assert ext.attrs["path"] == "kernel"
+    spans = [sp for sp in res.trace.find("kernel_launch")
+             if sp.attrs["kernel"] == "kmer_pack"]
+    assert len(spans) == 1
+    ref = assemble(rs.codes, rs.lengths,
+                   PipelineConfig(**{**cfg.__dict__, "backend": "reference",
+                                     "trace": False}))
+    for key in ("m_reliable", "n_unique_kmers", "n_singletons", "nnz_A",
+                "overflow_A", "nnz_C", "nnz_R", "nnz_S"):
+        assert res.stats[key] == ref.stats[key], key
 
 
 # --- cc: hook / in-hook / pointer-jump rounds ---------------------------------

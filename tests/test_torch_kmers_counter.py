@@ -37,16 +37,21 @@ def test_simulators_agree():
         assert np.array_equal(a.truth_start, b.truth_start)
 
 
-@pytest.mark.parametrize("k", [7, 15, 21])
+KS = [7, 15, 16, 21, 30]
+
+
+@pytest.mark.parametrize("k", KS)
 def test_extract_kmers_matches_jax(k):
+    """Through the ``kmer_pack`` op (the plain version on CPU tensors)."""
     rs = _reads(seed=k)
     j = jk.extract_kmers(jnp.asarray(rs.codes), jnp.asarray(rs.lengths), k=k)
-    t = tk.extract_kmers(torch.from_numpy(rs.codes), torch.from_numpy(rs.lengths), k=k)
+    t = tk.extract_kmers(torch.from_numpy(rs.codes), torch.from_numpy(rs.lengths),
+                         k=k)
     for key in ("hi", "lo", "strand", "pos", "valid"):
         np.testing.assert_array_equal(np.asarray(j[key]), t[key].numpy(), key)
 
 
-@pytest.mark.parametrize("k", [7, 15, 21])
+@pytest.mark.parametrize("k", KS)
 def test_extract_kmers_at_edge_lengths_matches_jax(k):
     """Seeded reads whose lengths include k, k + 1, the padded maximum,
     and lengths below k (no valid k-mer): every field equals JAX's."""
@@ -60,6 +65,7 @@ def test_extract_kmers_at_edge_lengths_matches_jax(k):
     t = tk.extract_kmers(torch.from_numpy(codes), torch.from_numpy(lens), k=k)
     for key in ("hi", "lo", "strand", "pos", "valid"):
         np.testing.assert_array_equal(np.asarray(j[key]), t[key].numpy(), key)
+        assert t[key].dtype == {"valid": torch.bool}.get(key, torch.int32)
     assert t["hi"].shape == (9, lmax - k + 1)
 
 

@@ -145,6 +145,8 @@ def test_step_attributes_are_the_host_counts(runs):
     (ext,) = tr.find("CountKmer.extract")
     width = np.asarray(rs.codes).shape[1]
     assert ext.attrs["instances"] == len(rs.lengths) * (width - 15 + 1)
+    assert ext.attrs["kind"] == "step"
+    assert ext.attrs["path"] == "torch"  # the plain version: a CPU run
     for name in STEPS["CountKmer"][1:]:
         assert tr.find(name)[0].attrs["instances"] == ext.attrs["instances"]
     (cand,) = tr.find("Alignment.candidates")
