@@ -401,25 +401,27 @@ def masked_work(a_cols, a_vals, b_cols, b_vals, m_cols):
             "t_ops": 16 * products / F32_OPS_S}
 
 
-def pileup_work(draft, pieces, start, plen):
+def pileup_work(draft, lengths, pieces, contig, start, plen):
     """``(bytes, operations, votes, tile list entries, tiles)`` of a
-    consensus call.  Bytes: the draft, the piece bytes on vote columns,
-    start and plen, the three outputs; operations: ~12 int32 a (column,
-    piece) vote (its compare, the ballot and popcount of its window, the
-    closed-form count of comparable positions, the gate and the count) and
-    ~12 a column (the vote epilogue)."""
+    consensus call on the packed layout.  Bytes: the draft, the piece bytes
+    on vote columns, contig, start and plen, the three outputs; operations:
+    ~12 int32 a (column, piece) vote (its compare, the ballot and popcount
+    of its window, the closed-form count of comparable positions, the gate
+    and the count) and ~12 a column (the vote epilogue)."""
     import torch
 
     from repro_torch.kernels.pileup import ops as pu_ops
 
-    c, l = draft.shape
-    lr = pieces.shape[2]
-    lo, hi = pu_ops.vote_ranges(start, plen, l, lr)
+    b = draft.numel()
+    lr = pieces.shape[1]
+    lc = lengths[contig.long()]
+    lo, hi = pu_ops.vote_ranges(start, plen, lc, lr)
     votes = int(torch.clamp(hi - lo, min=0).sum())
-    entries = int(pu_ops.tile_entries(start, plen, l, lr).sum())
-    tiles = c * -(-l // pu_ops.TILE)
-    bytes_ = c * l + votes + 8 * start.numel() + 9 * c * l
-    return bytes_, 12 * votes + 12 * c * l, votes, entries, tiles
+    entries = int(pu_ops.tile_entries(start, plen, lc, lr).sum())
+    tiles = int(torch.div(lengths.long() + pu_ops.TILE - 1, pu_ops.TILE,
+                          rounding_mode="floor").sum())
+    bytes_ = b + votes + 12 * start.numel() + 9 * b
+    return bytes_, 12 * votes + 12 * b, votes, entries, tiles
 
 
 def _entry(mangled: str) -> str:
@@ -774,18 +776,16 @@ def bacterial_phase(args, check, records, device: str = "cuda") -> dict:
           work["t_bytes"], work["t_ops"])
     del cap_s, sa, got, want
 
-    (pd, pp, ps, pl), pkw = cap_p[0]
-    got = K.pileup_vote(pd, pp, ps, pl, **pkw)
-    want, plain_ms = plain_once(lambda: K.pileup_vote_ref(pd, pp, ps, pl,
-                                                          **pkw))
+    pa, pkw = cap_p[0]
+    got = K.pileup_vote(*pa, **pkw)
+    want, plain_ms = plain_once(lambda: K.pileup_vote_ref(*pa, **pkw))
     exact("pileup", got, want)
-    bytes_, ops_, votes, _, _ = pileup_work(pd, pp, ps, pl)
-    ms = time_ms(lambda: K.pileup_vote(pd, pp, ps, pl, **pkw), 5) \
-        if cuda else None
-    entry("pileup", f"the consensus call: {pd.shape[0]} contigs x "
-          f"{pd.shape[1]} columns, {pp.shape[1]} pieces of {pp.shape[2]}, "
-          f"{votes} votes", launches["pileup"], ms, plain_ms,
-          bytes_ / HBM_BYTES_S, ops_ / I32_OPS_S)
+    bytes_, ops_, votes, _, _ = pileup_work(*pa)
+    ms = time_ms(lambda: K.pileup_vote(*pa, **pkw), 5) if cuda else None
+    entry("pileup", f"the consensus call: {pa[1].numel()} contigs, "
+          f"{pa[0].numel()} columns (packed), {pa[2].shape[0]} pieces of "
+          f"{pa[2].shape[1]}, {votes} votes", launches["pileup"], ms,
+          plain_ms, bytes_ / HBM_BYTES_S, ops_ / I32_OPS_S)
     del cap_p, got, want
     out["minplus"] = [{"input": f"n = {n} reads: " + (
         "the dense TR" if dense_tr else
@@ -2439,27 +2439,33 @@ def kernel_phases(args):
 
     # pileup: the real consensus call, in three launches: the bin passes
     # (count, device cumsum, fill) and the vote launch
-    (draft, pieces, start, plen), kw = captured["consensus"][0]
-    mdep = kw["min_depth"]
-    got = K.pileup_vote(draft, pieces, start, plen, min_depth=mdep)
-    want = K.pileup_vote_ref(draft, pieces, start, plen, min_depth=mdep)
-    c, l = draft.shape
-    m, lr = pieces.shape[1], pieces.shape[2]
-    bytes_, ops, votes, entries, tiles = pileup_work(draft, pieces, start,
-                                                     plen)
-    print(f"[kernels] pileup: {c} contigs x {l} columns, {m} pieces of {lr}, "
-          f"{votes} (column, piece) votes; {tiles} tiles of "
-          f"{pu_ops.TILE} columns, {entries} list entries "
+    pa, kw = captured["consensus"][0]
+    draft, lengths, pieces, contig, start, plen = pa
+    got = K.pileup_vote(*pa, **kw)
+    want = K.pileup_vote_ref(*pa, **kw)
+    c, l, b = lengths.numel(), kw["l"], draft.numel()
+    p, lr = pieces.shape
+    bytes_, ops, votes, entries, tiles = pileup_work(*pa)
+    print(f"[kernels] pileup: {c} contigs, {b} columns (packed; the longest "
+          f"{l}), {p} pieces of {lr}, {votes} (column, piece) votes; {tiles} "
+          f"tiles of {pu_ops.TILE} columns, {entries} list entries "
           f"({entries / max(tiles, 1):.2f} pieces a tile)")
     record("pileup", got, want,
-           lambda: K.pileup_vote(draft, pieces, start, plen, min_depth=mdep),
-           lambda: K.pileup_vote_ref(draft, pieces, start, plen, min_depth=mdep),
+           lambda: K.pileup_vote(*pa, **kw),
+           lambda: K.pileup_vote_ref(*pa, **kw),
            bytes_, ops, I32_OPS_S, reps=50)
-    ends, slots = pu_ops.tile_lists(start, plen, l, lr)
+    tile_first, tile_contig = pu_ops.tile_layout(lengths, b)
+
+    def bins():
+        return pu_ops.tile_lists(lengths, contig, start, plen, tile_first,
+                                 tile_contig.numel(), lr)
+
+    ends, slots = bins()
     records[-1].update({
-        "bins_ms": time_ms(lambda: pu_ops.tile_lists(start, plen, l, lr), 50),
+        "bins_ms": time_ms(bins, 50),
         "vote_ms": time_ms(lambda: pu_ops.vote_tiles(
-            draft, pieces, start, plen, ends, slots, min_depth=mdep), 50),
+            draft, lengths, pieces, start, plen, tile_first, tile_contig,
+            ends, slots, **kw), 50),
         "tiles": tiles, "list_entries": entries, "votes": votes,
         "ptxas": ptxas["pileup"]})
     print(f"[kernels] pileup split: bins {records[-1]['bins_ms']:.6f} ms, "

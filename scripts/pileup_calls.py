@@ -7,14 +7,15 @@ on one NVIDIA card, for one source tree or several in turns.
 
 The inputs are ``chip_smoke.py``'s consensus call: its 4000 reads and
 configuration through ``assemble()`` on the card (this checkout), the
-captured ``(draft, pieces, start, plen)`` saved under ``build/
-pileup_calls/``.  Each tree then runs in a process of its own, with
+captured arguments of the packed layout (``draft, lengths, pieces,
+contig, start, plen`` and ``l``) saved under ``build/pileup_calls/``; a
+tree must take them (the packed op).  Each tree then runs in a process of its own, with
 ``TREE/src`` first on the path (its kernels build into ``TREE/build/``),
 and prints one JSON line: the CUDA-event time of one whole ``pileup_vote``
 call (every launch in it) over ``--reps`` calls, its launches, whether its
 outputs equal the plain version's, the device time per call of each kernel
-it launches (``torch.profiler``), and, where the tree's wrapper splits the
-call into tile lists and a vote launch, each part's time.  The trees run in
+it launches (``torch.profiler``), and the time of the call's two parts,
+the tile lists and the vote launch.  The trees run in
 the order given, then in reverse, after one line with the card's name and
 power limit.  Exits non-zero without a card.
 """
@@ -99,7 +100,7 @@ def capture(genome_kb, seed):
     assemble(reads.codes, reads.lengths, cfg)
     (args, kw), = calls
     os.makedirs(os.path.dirname(INPUTS), exist_ok=True)
-    torch.save({"args": [t.cpu() for t in args], "min_depth": kw["min_depth"],
+    torch.save({"args": [t.cpu() for t in args], "kw": kw,
                 "reads": reads.n_reads}, INPUTS)
 
 
@@ -115,27 +116,32 @@ def measure(tree, reps):
     build_all(["pileup"])
     saved = torch.load(INPUTS)
     args = [t.cuda() for t in saved["args"]]
-    md = saved["min_depth"]
+    kw = saved["kw"]
     before = K.KERNELS["pileup"].launches
-    got = K.pileup_vote(*args, min_depth=md)
+    got = K.pileup_vote(*args, **kw)
     launches = K.KERNELS["pileup"].launches - before
-    want = K.pileup_vote_ref(*args, min_depth=md)
+    want = K.pileup_vote_ref(*args, **kw)
+    draft, lengths, pieces, contig, start, plen = args
     out = {"tree": tree, "reads": saved["reads"],
-           "shape": {"contigs": args[0].shape[0], "columns": args[0].shape[1],
-                     "pieces": args[1].shape[1], "piece_len": args[1].shape[2]},
+           "shape": {"contigs": lengths.numel(), "columns": draft.numel(),
+                     "longest": kw["l"], "pieces": pieces.shape[0],
+                     "piece_len": pieces.shape[1]},
            "launches_per_call": launches,
            "exact": all(torch.equal(g, w) for g, w in zip(got, want)),
-           "ms_per_call": time_ms(lambda: K.pileup_vote(*args, min_depth=md),
-                                  reps)}
+           "ms_per_call": time_ms(lambda: K.pileup_vote(*args, **kw), reps)}
     out["device_us_per_call"] = device_us(
-        lambda: K.pileup_vote(*args, min_depth=md), 20) or "not measured"
-    if hasattr(pu_ops, "tile_lists"):
-        l, lr = args[0].shape[1], args[1].shape[2]
-        ends, slots = pu_ops.tile_lists(args[2], args[3], l, lr)
-        out["bins_ms"] = time_ms(
-            lambda: pu_ops.tile_lists(args[2], args[3], l, lr), reps)
-        out["vote_ms"] = time_ms(lambda: pu_ops.vote_tiles(
-            *args, ends, slots, min_depth=md), reps)
+        lambda: K.pileup_vote(*args, **kw), 20) or "not measured"
+    tile_first, tile_contig = pu_ops.tile_layout(lengths, draft.numel())
+
+    def bins():
+        return pu_ops.tile_lists(lengths, contig, start, plen, tile_first,
+                                 tile_contig.numel(), pieces.shape[1])
+
+    ends, slots = bins()
+    out["bins_ms"] = time_ms(bins, reps)
+    out["vote_ms"] = time_ms(lambda: pu_ops.vote_tiles(
+        draft, lengths, pieces, start, plen, tile_first, tile_contig, ends,
+        slots, **kw), reps)
     return out
 
 

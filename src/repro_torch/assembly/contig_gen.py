@@ -9,12 +9,12 @@ The PyTorch counterpart of ``repro.assembly.contig_gen``'s device path
 3. cut cycles at their minimum state, label unitigs by pointer-doubling
    path components and rank states within each chain;
 4. drop reverse-complement twin chains, lay each contig out as (row,
-   offset) per state and gather the oriented read suffixes into one padded
-   ``(n_contigs, max_len)`` uint8 tensor.
+   offset) per state and gather the oriented read suffixes of the contigs,
+   end to end, into one flat uint8 tensor of their live bases.
 
-The only host reads are four scalars (#chains, max chain length, #contigs,
-max contig length) that size the power-of-two padded tensors between the
-steps.  The steps are spans: ``Contigs.chains`` (1–3), ``Contigs.layout``
+The only host reads are five scalars (#chains, max chain length, #contigs,
+max contig length, total contig length) that size the chain rows (padded
+to powers of two) and the packed contig set between the steps.  The steps are spans: ``Contigs.chains`` (1–3), ``Contigs.layout``
 and ``Contigs.gather`` (4).  The op ``contig_gen`` is registered with ``"reference"`` = the host
 walk of ``contigs.py`` and ``"cuda"`` = this device path; both give
 identical contigs.  ``string_matrix_from_edges`` and
@@ -44,7 +44,8 @@ from .contigs import (
     Contig,
     extract_contig_chains,
     materialize_contigs,
-    materialize_rows,
+    materialize_packed,
+    pad_rows,
     state_edges,
 )
 
@@ -55,23 +56,43 @@ _I32 = torch.int32
 @dataclasses.dataclass
 class ContigSet:
     """Batched contig tensors + per-piece provenance (see
-    ``repro.assembly.contig_gen.ContigSet``): rows beyond ``n_contigs`` are
-    padding; ``states`` holds each chain's state ids (−1 padded); piece t of
-    a contig wrote its last ``widths[c, t]`` oriented bases at columns
-    ``[offsets[c, t], offsets[c, t] + widths[c, t])``."""
+    ``repro.assembly.contig_gen.ContigSet``), packed: the contigs lie end to
+    end, contig ``c`` taking ``lengths[c]`` of the bases and ``n_pieces[c]``
+    of the pieces.  A piece is one state of the contig's chain (a
+    singleton's one read); it wrote the last ``widths[p]`` of its oriented
+    read's bases at columns ``[offsets[p], offsets[p] + widths[p])`` of its
+    contig.  Only live bases and pieces are held: :meth:`padded` gives the
+    padded layout of the JAX package's ``ContigSet``."""
 
-    codes: Any  # (C, L) uint8
+    codes: Any  # (B,) uint8, every contig's bases, end to end
     lengths: Any  # (C,) int32
-    states: Any  # (C, M) int32, -1 padded
-    offsets: Any  # (C, M) int32
-    widths: Any  # (C, M) int32
+    states: Any  # (P,) int32, every contig's chain, end to end
+    offsets: Any  # (P,) int32
+    widths: Any  # (P,) int32
+    n_pieces: Any  # (C,) int32
     n_contigs: int
     stats: Dict[str, Any]
 
     def to_contigs(self) -> List[Contig]:
-        """Materialize the padded tensors into host ``Contig`` records."""
-        return materialize_rows(self.codes, self.lengths, self.states,
-                                self.n_contigs)
+        """The contigs as host ``Contig`` records."""
+        return materialize_packed(self.codes, self.lengths, self.states,
+                                  self.n_pieces)
+
+    def padded(self, rows=None, cols=None, slots=None):
+        """``(codes (rows, cols), lengths (rows,), states, offsets, widths
+        (rows, slots))``: the padded layout (``states`` −1 padded, the rest
+        0), by default as small as holds the set.  For comparisons with the
+        padded layout; the pipeline never builds it."""
+        rows = self.n_contigs if rows is None else rows
+        lens = torch.zeros(rows, dtype=self.lengths.dtype,
+                           device=self.lengths.device)
+        lens[:self.n_contigs] = self.lengths
+        return (pad_rows(self.codes, self.lengths, rows=rows, cols=cols),
+                lens,
+                pad_rows(self.states, self.n_pieces, rows=rows, cols=slots,
+                         fill=-1),
+                pad_rows(self.offsets, self.n_pieces, rows=rows, cols=slots),
+                pad_rows(self.widths, self.n_pieces, rows=rows, cols=slots))
 
 
 ZERO_EXCHANGE_STATS = schema.zero_defaults("contig_exchange")
@@ -269,7 +290,6 @@ def _chain_layout(st, lengths, contained, *, ca: int, m: int):
     b = torch.gather(tw, 1, first)[:, 0]
     keep = valid & ~(is_twin & torch.any(neq, dim=1) & (b < a))
 
-    contig_row_of_chain = _cumsum32(keep) - 1
     n_chain_contigs = torch.sum(keep).to(_I32)
 
     # piece layout in sorted state space: width (bases this state appends)
@@ -289,86 +309,64 @@ def _chain_layout(st, lengths, contained, *, ca: int, m: int):
     seg_total.index_add_(0, e_chain, width[elig_s])
     seg_base = _cumsum32(seg_total) - seg_total
     dst = torch.where(piece_on, excl - seg_base[chain_clip], 0).to(_I32)
-    piece_row = torch.where(piece_on, contig_row_of_chain[chain_clip], 0)
-
-    dst_rows = torch.zeros((ca, m), dtype=_I32, device=dev)
-    dst_rows[e_chain, e_col] = dst[elig_s]
-    width_rows = torch.zeros((ca, m), dtype=_I32, device=dev)
-    width_rows[e_chain, e_col] = width[elig_s]
 
     # isolated reads (no state-graph edges at all) → singleton contigs
     iso = ~st["has_edge"] & ~contained
-    iso_row = n_chain_contigs + _cumsum32(iso) - 1
     n_contigs = n_chain_contigs + torch.sum(iso).to(_I32)
     zero = torch.zeros((), dtype=_I32, device=dev)
     max_len = torch.maximum(
         torch.amax(torch.where(keep, seg_total, zero)),
         torch.amax(torch.where(iso, lengths, zero)),
     )
+    total = (torch.sum(torch.where(keep, seg_total, zero), dtype=torch.int64)
+             + torch.sum(torch.where(iso, lengths, zero), dtype=torch.int64))
     return {
-        "rows": rows,
-        "dst_rows": dst_rows,
-        "width_rows": width_rows,
         "keep": keep,
-        "contig_row_of_chain": contig_row_of_chain,
+        "chain_len": chain_len,
         "contig_len": seg_total,
         "piece_on": piece_on,
-        "piece_row": piece_row,
         "dst": dst,
         "width": width,
         "iso": iso,
-        "iso_row": iso_row,
         "n_contigs": n_contigs,
         "max_len": max_len,
+        "total": total,
     }
 
 
-def _scatter_pieces(out, codes, lengths, state, take, dstoff, rowidx, on):
-    """Write the last ``take`` oriented bases of each piece's read at
-    ``out[rowidx, dstoff:dstoff + take]``."""
-    lr = codes.shape[1]
-    r = (state >> 1).to(torch.int64)
-    rc = ((state & 1) == 1)[:, None]
-    ln = lengths[r][:, None]
-    tk = take[:, None]
-    b = torch.arange(lr, dtype=_I32, device=codes.device)[None, :]
-    idx = torch.where(rc, tk - 1 - b, ln - tk + b)
-    base = codes[r[:, None], torch.clamp(idx, 0, lr - 1).to(torch.int64)]
-    base = torch.where(rc, 3 - base, base)
-    ok = on[:, None] & (b < tk)
-    rows = rowidx[:, None].expand(ok.shape)[ok].to(torch.int64)
-    cols = (dstoff[:, None] + b)[ok].to(torch.int64)
-    out[rows, cols] = base[ok]
+def _piece_bases(codes, lengths, states, widths, *, total: int):
+    """The last ``widths[p]`` bases of each piece's oriented read, the
+    pieces end to end: ``(total,)`` uint8, one gather of the live bases."""
+    dev = codes.device
+    w = widths.to(torch.int64)
+    p = torch.repeat_interleave(torch.arange(w.numel(), device=dev), w,
+                                output_size=total)
+    b = torch.arange(total, device=dev) - (torch.cumsum(w, 0) - w)[p]
+    s = states.to(torch.int64)[p]
+    r = s >> 1
+    rc = (s & 1) == 1
+    take = w[p]
+    idx = torch.where(rc, take - 1 - b, lengths.to(torch.int64)[r] - take + b)
+    base = codes[r, idx]
+    return torch.where(rc, 3 - base, base)
 
 
-def _gather_codes(st, lay, codes, lengths, *, c: int, l: int):
-    """The padded contig tensor and its lengths, states and provenance."""
+def _pack_contigs(st, lay, codes, lengths, *, total: int):
+    """The packed contig set: the kept chains in row order, then the
+    isolated reads' singletons.  Each chain's states come rank by rank,
+    their offsets the running sum of their widths, so the pieces' bases
+    follow each other and the contigs' bases lie end to end."""
     n = codes.shape[0]
     dev = codes.device
-    out = torch.zeros((c, l), dtype=torch.uint8, device=dev)
-    _scatter_pieces(out, codes, lengths, st["state_s"], lay["width"],
-                    lay["dst"], lay["piece_row"], lay["piece_on"])
-    iso = lay["iso"]
-    _scatter_pieces(out, codes, lengths, 2 * torch.arange(n, dtype=_I32, device=dev),
-                    torch.where(iso, lengths, 0), torch.zeros(n, dtype=_I32, device=dev),
-                    lay["iso_row"], iso)
-
-    keep = lay["keep"]
-    crow = lay["contig_row_of_chain"][keep].to(torch.int64)
-    irow = lay["iso_row"][iso].to(torch.int64)
-    m = lay["rows"].shape[1]
-    out_len = torch.zeros(c, dtype=_I32, device=dev)
-    out_len[crow] = lay["contig_len"][keep]
-    out_len[irow] = lengths[iso]
-    out_states = torch.full((c, m), -1, dtype=_I32, device=dev)
-    out_states[crow] = lay["rows"][keep]
-    out_states[irow, 0] = 2 * torch.arange(n, dtype=_I32, device=dev)[iso]
-    out_offs = torch.zeros((c, m), dtype=_I32, device=dev)
-    out_offs[crow] = lay["dst_rows"][keep]
-    out_widths = torch.zeros((c, m), dtype=_I32, device=dev)
-    out_widths[crow] = lay["width_rows"][keep]
-    out_widths[irow, 0] = lengths[iso]
-    return out, out_len, out_states, out_offs, out_widths
+    on, iso, keep = lay["piece_on"], lay["iso"], lay["keep"]
+    reads = torch.arange(n, dtype=_I32, device=dev)[iso]
+    states = torch.cat([st["state_s"][on], 2 * reads])
+    offsets = torch.cat([lay["dst"][on], torch.zeros_like(reads)])
+    widths = torch.cat([lay["width"][on], lengths[iso]])
+    out_len = torch.cat([lay["contig_len"][keep], lengths[iso]])
+    n_pieces = torch.cat([lay["chain_len"][keep], torch.ones_like(reads)])
+    bases = _piece_bases(codes, lengths, states, widths, total=total)
+    return bases, out_len, states, offsets, widths, n_pieces
 
 
 def _device_contig_gen(s_mat, codes, lengths, contained=None, *,
@@ -391,11 +389,12 @@ def _device_contig_gen(s_mat, codes, lengths, contained=None, *,
                             m=next_pow2(max_chain))
         n_contigs = int(lay["n_contigs"])
         max_len = int(lay["max_len"])
+        total = int(lay["total"])
         sp.annotate(n_contigs=n_contigs, max_len=max_len)
-    with span("Contigs.gather", kind="step", n_contigs=n_contigs):
-        out_codes, out_len, out_states, out_offs, out_widths = _gather_codes(
-            st, lay, codes, lengths, c=next_pow2(n_contigs),
-            l=next_pow2(max_len))
+    with span("Contigs.gather", kind="step", n_contigs=n_contigs,
+              max_len=max_len, live_bases=total):
+        out_codes, out_len, out_states, out_offs, out_widths, n_pieces = (
+            _pack_contigs(st, lay, codes, lengths, total=total))
         stats = validated(
             {
                 "n_branch_cut": int(st["n_branch_cut"]),
@@ -406,7 +405,7 @@ def _device_contig_gen(s_mat, codes, lengths, contained=None, *,
             context="contig_gen", require_groups=("contig_exchange",),
         )
     return ContigSet(codes=out_codes, lengths=out_len, states=out_states,
-                     offsets=out_offs, widths=out_widths,
+                     offsets=out_offs, widths=out_widths, n_pieces=n_pieces,
                      n_contigs=n_contigs, stats=stats)
 
 
@@ -424,38 +423,38 @@ def _reference_contig_gen(s_mat, codes, lengths, contained=None, *,
     contigs = materialize_contigs(chains, edges[2], codes_np, lengths_np,
                                   contained)
     c = len(contigs)
-    lmax = max((ct.length for ct in contigs), default=0)
-    mmax = max((len(ct.reads) for ct in contigs), default=1)
-    out = np.zeros((c, lmax), np.uint8)
-    lens = np.zeros(c, np.int32)
-    states = np.full((c, mmax), -1, np.int32)
-    offs = np.zeros((c, mmax), np.int32)
-    widths = np.zeros((c, mmax), np.int32)
+    out = (np.concatenate([ct.codes for ct in contigs]) if contigs
+           else np.zeros(0, np.uint8)).astype(np.uint8)
+    lens = np.asarray([ct.length for ct in contigs], np.int32)
+    n_pieces = np.asarray([len(ct.reads) for ct in contigs], np.int32)
+    states = np.asarray([2 * r + s for ct in contigs for r, s in ct.reads],
+                        np.int32)
+    offs = np.zeros(states.shape, np.int32)
+    widths = np.zeros(states.shape, np.int32)
     # materialize_contigs appends isolated singletons after the chain
     # contigs: chains[i] is the provenance of contigs[i], every later contig
     # a single full-read piece at offset 0
+    p = 0
     for i, ct in enumerate(contigs):
-        out[i, : ct.length] = ct.codes
-        lens[i] = ct.length
-        for t, (r, s) in enumerate(ct.reads):
-            states[i, t] = 2 * r + s
         if i < len(chains):
             off = 0
             for t, (state, suf) in enumerate(chains[i]):
                 rl = int(lengths_np[state >> 1])
                 w = rl if t == 0 else min(int(suf), rl)
-                offs[i, t] = off
-                widths[i, t] = w
+                offs[p + t] = off
+                widths[p + t] = w
                 off += w
         else:
-            widths[i, 0] = lens[i]
+            widths[p] = lens[i]
+        p += len(ct.reads)
 
     def dev_t(x):
         return torch.from_numpy(x).to(dev)
 
     return ContigSet(
         codes=dev_t(out), lengths=dev_t(lens), states=dev_t(states),
-        offsets=dev_t(offs), widths=dev_t(widths), n_contigs=c,
+        offsets=dev_t(offs), widths=dev_t(widths),
+        n_pieces=dev_t(n_pieces), n_contigs=c,
         stats=validated(
             {
                 "n_branch_cut": int(n_branch_cut),

@@ -15,9 +15,11 @@ outgoing edge in the original graph.  A chain is dropped iff its reverse-
 complement twin is also emitted and is lexicographically smaller.
 
 Besides the walk: :func:`extract_contigs` (walk + materialisation in one
-call), :func:`pileup_polish_host` (the dict-and-loop cross-check of the
-``consensus`` op), :func:`read_components` / :func:`contig_components`
-(the component grouping of the FASTA output) and :func:`contig_str`.
+call), :func:`materialize_packed` and :func:`pad_rows` (the packed contig
+tensors as host records and as padded rows), :func:`pileup_polish_host`
+(the dict-and-loop cross-check of the ``consensus`` op),
+:func:`read_components` / :func:`contig_components` (the component
+grouping of the FASTA output) and :func:`contig_str`.
 """
 
 from __future__ import annotations
@@ -64,37 +66,42 @@ def _oriented(codes_row: np.ndarray, length: int, strand: int) -> np.ndarray:
     return (3 - r[::-1]) if strand else r
 
 
-def _live_bases(codes, lens: np.ndarray) -> np.ndarray:
-    """The first ``lens[i]`` bases of rows ``0 .. len(lens) - 1`` of
-    ``codes``, concatenated, as a host array: gathered where ``codes``
-    lies and brought to the host in one transfer of the live bases alone,
-    not of the padded rows."""
-    codes = torch.as_tensor(codes)
-    dev = codes.device
-    ln = torch.from_numpy(lens).to(dev)
-    total = int(lens.sum())
-    rows = torch.repeat_interleave(torch.arange(len(lens), device=dev), ln,
-                                   output_size=total)
-    starts = torch.cumsum(ln, 0) - ln
-    cols = torch.arange(total, device=dev) - starts[rows]
-    return codes[rows, cols].cpu().numpy()
-
-
-def materialize_rows(codes, lengths, states, n_contigs: int) -> List[Contig]:
-    """Rows of ``codes``/``lengths`` with their ``states`` chains (−1
-    padded) as ``Contig`` records — shared by the draft ``ContigSet`` and
-    the polished ``ConsensusResult``.  Only the first ``n_contigs`` rows
-    and their live bases reach the host; each record's codes are its slice
-    of the one array of live bases."""
-    lens = _np(lengths[:n_contigs]).astype(np.int64)
-    flat = _live_bases(codes, lens)
-    states = _np(states[:n_contigs])
-    ends = np.cumsum(lens).tolist()
+def materialize_packed(codes, lengths, states, n_pieces) -> List[Contig]:
+    """Packed contig tensors as host ``Contig`` records — shared by the
+    draft ``ContigSet`` and the polished ``ConsensusResult``.  The contigs
+    lie end to end: ``codes`` holds their bases and ``states`` their chains,
+    contig ``c`` taking ``lengths[c]`` bases and ``n_pieces[c]`` states of
+    each.  The bases reach the host in one transfer, and each record's
+    codes are its slice of that one array."""
+    flat = _np(codes)
+    lens = _np(lengths).astype(np.int64)
+    counts = _np(n_pieces).astype(np.int64)
+    states = _np(states)
     out: List[Contig] = []
-    for row, ln, end in zip(states, lens.tolist(), ends):
-        ss = row[row >= 0].tolist()
+    for ln, end, k, pend in zip(lens.tolist(), np.cumsum(lens).tolist(),
+                                counts.tolist(), np.cumsum(counts).tolist()):
+        ss = states[pend - k:pend].tolist()
         out.append(Contig(reads=[(s >> 1, s & 1) for s in ss], length=ln,
                           codes=flat[end - ln:end]))
+    return out
+
+
+def pad_rows(values, counts, *, rows=None, cols=None, fill=0):
+    """Packed ``values`` (row after row, row ``c`` taking ``counts[c]`` of
+    them) as a ``(rows, cols)`` tensor padded with ``fill``, by default as
+    small as holds them: the padded layout of a packed one, for comparisons
+    with it."""
+    n = counts.to(torch.int64)
+    rows = n.numel() if rows is None else rows
+    if cols is None:
+        cols = int(n.max()) if n.numel() else 0
+    out = torch.full((rows, cols), fill, dtype=values.dtype,
+                     device=values.device)
+    r = torch.repeat_interleave(torch.arange(n.numel(), device=n.device), n,
+                                output_size=values.numel())
+    j = torch.arange(values.numel(), device=n.device) - (torch.cumsum(n, 0)
+                                                         - n)[r]
+    out[r, j] = values
     return out
 
 

@@ -38,8 +38,11 @@ and shard_map phases → ``op:<name>`` dispatches → kernel launches, each
 with its device interval and device-memory columns) on
 ``AssemblyResult.trace``.  The steps (``<Stage>.<step>``, kind ``"step"``)
 split CountKmer (extract, sort, runs, select), Alignment (candidates,
-xdrop, scatter), TrReduction (square and prune, once an iteration) and
-Contigs (chains, layout, gather on the device path; materialize).
+xdrop, scatter), TrReduction (square and prune, once an iteration),
+Contigs (chains, layout, gather on the device path; materialize) and
+Consensus (gather, refine, vote).  The SpGEMM and BuildR stage spans carry
+``overflow_C`` and ``overflow_R``, the candidates and edges their row
+capacities dropped.
 """
 
 from __future__ import annotations
@@ -357,6 +360,7 @@ def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
         metrics.emit("overlap_distribution", "gspmd")
     metrics.seed_zero("summa_exchange")
     metrics.emit("overflow_C", int(ovf_c))
+    sp.annotate(overflow_C=metrics["overflow_C"])
     metrics.emit("nnz_C", int(c_mat.nnz()))
     metrics.emit("c_density", metrics["nnz_C"] / max(1, int(n)))
 
@@ -393,6 +397,7 @@ def _assemble(codes, lengths, cfg: PipelineConfig, device) -> AssemblyResult:
         )
         r_mat = sp.set_output(drop_contained(r_mat, contained))
     metrics.emit("overflow_R", int(ovf_r))
+    sp.annotate(overflow_R=metrics["overflow_R"])
     metrics.emit("nnz_R", int(r_mat.nnz()))
     metrics.emit("r_density", metrics["nnz_R"] / max(1, int(n)))
     metrics.emit("n_contained", int(torch.sum(contained)))

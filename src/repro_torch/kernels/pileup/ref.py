@@ -1,14 +1,20 @@
 """Plain PyTorch version of the banded pileup-vote consensus op.
 
-A mirror of ``repro.kernels.pileup.ref.pileup_vote_ref`` (DESIGN.md §2.8):
-every piece scatters its oriented bases onto contig columns
+A mirror of ``repro.kernels.pileup.ref.pileup_vote_ref`` (DESIGN.md §2.8)
+on the packed layout: the contigs' columns lie end to end in one flat
+draft, contig ``c`` taking ``lengths[c]`` of them, and each piece names its
+contig.  Every piece scatters its oriented bases onto its contig's columns
 ``start + b``; a base votes only if it is coherent — in the ±``COH_WIN``
 window around it (centre excluded) the read matches the draft on at least
 ``COH_NUM/COH_DEN`` of the positions where both are defined, with at least
-``COH_MIN_VALID`` such positions.  A column is re-called to the first
-maximum of its counts where ``depth ≥ min_depth`` and the winner holds a
-strict majority, else the draft base is kept; ``agree`` is the count of the
-final base.  All quantities are integer counts, so parity is exact.
+``COH_MIN_VALID`` such positions.  The window's columns run to ``l``, the
+longest contig's length, and past a contig's end read as code 0: what the
+JAX package's draft, padded to ``l`` columns with zeros, holds there.  A
+column is re-called to the first maximum of its counts where ``depth ≥
+min_depth`` and the winner holds a strict majority, else the draft base is
+kept; ``agree`` is the count of the final base.  All quantities are integer
+counts, so parity is exact.  :func:`from_padded` and :func:`to_padded`
+carry the JAX package's padded ``(C, L)`` / ``(C, M, LR)`` layout over.
 """
 
 from __future__ import annotations
@@ -31,22 +37,28 @@ def _vote(counts, draft, *, min_depth: int):
     return polished, depth, agree
 
 
-def pileup_vote_ref(draft, pieces, start, plen, *, min_depth: int = 2):
-    """draft (C, L) uint8, pieces (C, M, LR) uint8, start/plen (C, M) int32
-    -> (polished (C, L) uint8, depth (C, L) int32, agree (C, L) int32)."""
-    c, l = draft.shape
-    m, lr = pieces.shape[1], pieces.shape[2]
+def pileup_vote_ref(draft, lengths, pieces, contig, start, plen, *, l: int,
+                    min_depth: int = 2):
+    """draft (B,) uint8 (the contigs' columns end to end), lengths (C,)
+    int32, pieces (P, LR) uint8, contig/start/plen (P,) int32, ``l`` the
+    longest contig's length -> (polished (B,) uint8, depth (B,) int32,
+    agree (B,) int32)."""
+    total = draft.numel()
+    p, lr = pieces.shape
     dev = draft.device
-    counts = torch.zeros((c, l + 1, 4), dtype=torch.int32, device=dev)
-    rows = torch.arange(c, device=dev)[:, None, None]
-    b = torch.arange(lr, dtype=torch.int32, device=dev)[None, None, :]
+    counts = torch.zeros((total + 1, 4), dtype=torch.int32, device=dev)
+    first = torch.cumsum(lengths.to(torch.int64), 0) - lengths
+    b = torch.arange(lr, dtype=torch.int32, device=dev)[None, :]
     di = draft.to(torch.int32)
-    step = max(1, min(m, (1 << 22) // max(c * lr, 1)))
-    for m0 in range(0, m, step):
-        pc = pieces[:, m0:m0 + step].to(torch.int32)
-        mc = pc.shape[1]
-        pl_ = plen[:, m0:m0 + step, None]
-        col = start[:, m0:m0 + step, None] + b
+    step = max(1, (1 << 22) // max(lr, 1))
+    for p0 in range(0, p if total else 0, step):
+        sl = slice(p0, p0 + step)
+        pc = pieces[sl].to(torch.int32)
+        c = contig[sl].to(torch.int64)
+        base0 = first[c][:, None]
+        lc = lengths[c][:, None]
+        pl_ = plen[sl, None]
+        col = start[sl, None] + b
         ok = (b < pl_) & (col >= 0) & (col < l)
         match = torch.zeros(col.shape, dtype=torch.int32, device=dev)
         valid = torch.zeros(col.shape, dtype=torch.int32, device=dev)
@@ -56,19 +68,48 @@ def pileup_vote_ref(draft, pieces, start, plen, *, min_depth: int = 2):
             rb = b + w
             cb = col + w
             v = (rb >= 0) & (rb < pl_) & (cb >= 0) & (cb < l)
-            rv = torch.gather(
-                pc, 2, torch.clamp(rb, 0, lr - 1).to(torch.int64).expand(c, mc, lr)
-            )
-            dv = torch.gather(
-                di[:, None, :].expand(c, mc, l), 2,
-                torch.clamp(cb, 0, l - 1).to(torch.int64),
-            )
+            rv = torch.gather(pc, 1,
+                              torch.clamp(rb, 0, lr - 1).to(torch.int64)
+                              .expand(pc.shape))
+            inside = (cb >= 0) & (cb < lc)
+            dv = torch.where(inside, di[torch.where(inside, base0 + cb, 0)], 0)
             match = match + (v & (rv == dv)).to(torch.int32)
             valid = valid + v.to(torch.int32)
-        ok &= (COH_DEN * match >= COH_NUM * valid) & (valid >= COH_MIN_VALID)
+        # a vote past its contig's end lands on no column of the result
+        ok &= ((COH_DEN * match >= COH_NUM * valid)
+               & (valid >= COH_MIN_VALID) & (col < lc))
         counts.index_put_(
-            (rows.expand(c, mc, lr), torch.where(ok, col, l).to(torch.int64),
+            (torch.where(ok, base0 + col, total).to(torch.int64),
              torch.clamp(pc, 0, 3).to(torch.int64)),
             ok.to(torch.int32), accumulate=True,
         )
-    return _vote(counts[:, :l], draft, min_depth=min_depth)
+    return _vote(counts[:total], draft, min_depth=min_depth)
+
+
+def from_padded(draft, pieces, start, plen, lengths=None):
+    """The op's arguments for the padded layout — draft (C, L), pieces (C,
+    M, LR), start/plen (C, M) — as ``(args, kwargs)`` of the packed op;
+    contig ``c`` keeps the first ``lengths[c]`` columns of its row (all L
+    by default; ``L`` stays the window's bound)."""
+    c, l = draft.shape
+    m, lr = pieces.shape[1], pieces.shape[2]
+    dev = draft.device
+    if lengths is None:
+        lengths = torch.full((c,), l, dtype=torch.int32, device=dev)
+    keep = torch.arange(l, device=dev)[None, :] < lengths[:, None]
+    args = (draft[keep], lengths.to(torch.int32), pieces.reshape(c * m, lr),
+            torch.arange(c, dtype=torch.int32, device=dev).repeat_interleave(m),
+            start.reshape(-1), plen.reshape(-1))
+    return args, {"l": l}
+
+
+def to_padded(outputs, lengths, l: int):
+    """The op's outputs as ``(C, L)`` tensors, 0 past each contig's end."""
+    keep = (torch.arange(l, device=lengths.device)[None, :]
+            < lengths[:, None])
+    out = []
+    for x in outputs:
+        y = torch.zeros(keep.shape, dtype=x.dtype, device=x.device)
+        y[keep] = x
+        out.append(y)
+    return tuple(out)

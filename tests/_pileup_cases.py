@@ -1,9 +1,12 @@
 """Inputs of the pileup-vote op at the parity traps of the card's
 tile-list kernel (``csrc/pileup.cu``): pieces longer than LR, negative
 starts, starts at or past L, empty pieces, L around 9 and around the tile,
-a tile that 220 pieces reach, and a contig with no pieces.  Numpy arrays
-``(draft, pieces, start, plen)``; shared by the CPU emulation tests and the
-card tests."""
+a tile that 220 pieces reach, a contig with no pieces, and contigs of
+ragged lengths (one of none), whose tiles follow each other in the packed
+layout.  Numpy arrays ``(draft, pieces, start, plen)`` in the padded layout
+and each contig's length (:func:`case_lengths`; the draft is 0 past it),
+which ``kernels.pileup.ref.from_padded`` packs; shared by the CPU emulation
+tests and the card tests."""
 
 import numpy as np
 
@@ -62,6 +65,11 @@ def case_inputs(name):
         # 220 pieces reach the columns of tile 1 (two chunks of the staging)
         return _inputs(6, 1, 220, 2 * t + 40, 90, s_lo=t - 60, s_hi=2 * t - 10,
                        p_lo=40, p_hi=90, err=0.03)
+    if name == "ragged":
+        d, p, s, ln = _inputs(8, 5, 6, 600, 170, s_lo=-30, s_hi=560, p_lo=0,
+                              p_hi=170)
+        d[np.arange(600)[None, :] >= case_lengths(name)[:, None]] = 0
+        return d, p, s, ln
     if name == "empty_contig":
         d, p, s, ln = _inputs(7, 3, 5, 300, 100, s_lo=-10, s_hi=280, p_lo=20,
                               p_hi=100)
@@ -70,6 +78,14 @@ def case_inputs(name):
     raise ValueError(name)
 
 
+def case_lengths(name):
+    """Each contig's length: its row of the draft, but for ``ragged``."""
+    if name == "ragged":
+        return np.array([600, 37, 0, 257, 300], np.int32)
+    draft = case_inputs(name)[0]
+    return np.full(draft.shape[0], draft.shape[1], np.int32)
+
+
 CASES = ["random", "plen_gt_lr", "neg_start", "start_ge_l", "plen_zero",
          "l_1", "l_8", "l_9", "l_tm1", "l_t", "l_tp1", "dense_tile",
-         "empty_contig"]
+         "empty_contig", "ragged"]

@@ -361,7 +361,7 @@ def job_contigs(inputs):
     lengths = torch.from_numpy(inputs["lengths"])
     cset = generate_contigs(s, codes, lengths, backend="cuda",
                             distribution="shard_map")
-    fields = ("codes", "lengths", "states", "offsets", "widths")
+    fields = ("codes", "lengths", "states", "offsets", "widths", "n_pieces")
     return {"st": _np(st), "stats": stats, "doubling": _np(dbl),
             "cset": {f: _np(getattr(cset, f)) for f in fields},
             "n_contigs": cset.n_contigs, "cset_stats": cset.stats}

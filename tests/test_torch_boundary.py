@@ -100,8 +100,9 @@ def test_kernel_wrapper_raises_on_non_cpu_request(which):
             cc_rounds(torch.empty(4, 2, **i32), torch.empty(4, 1, **i32),
                       torch.empty(4, **i32), 8)
         else:
-            pileup_vote(torch.empty(1, 10, **u8), torch.empty(1, 2, 10, **u8),
-                        torch.empty(1, 2, **i32), torch.empty(1, 2, **i32))
+            pileup_vote(torch.empty(10, **u8), torch.empty(1, **i32),
+                        torch.empty(2, 10, **u8),
+                        *(torch.empty(2, **i32),) * 3, l=10)
 
 
 def test_kernel_build_raises_without_cuda():

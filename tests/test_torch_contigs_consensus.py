@@ -23,10 +23,11 @@ from repro.kernels.pileup.pileup import pileup_pallas
 from repro.kernels.pileup.ref import pileup_vote_ref as j_pileup_ref
 from repro_torch.assembly import consensus as tcons
 from repro_torch.assembly import contig_gen as tcg
-from repro_torch.assembly.contigs import contig_stats
+from repro_torch.assembly.contigs import contig_stats, pad_rows
 from repro_torch.convert import ell_from_numpy
 from repro_torch.core import components as tcomp
 from repro_torch.kernels import pileup_vote, pileup_vote_ref
+from repro_torch.kernels.pileup.ref import from_padded, to_padded
 
 jcomp = importlib.import_module("repro.core.components")
 
@@ -82,6 +83,13 @@ def _cset_arrays(cs):
             np.asarray(cs.offsets), np.asarray(cs.widths)]
 
 
+def _padded_like(t, j):
+    """The port's packed set in the padded layout of JAX's ``j``."""
+    return [x.numpy() for x in t.padded(rows=j.codes.shape[0],
+                                        cols=j.codes.shape[1],
+                                        slots=j.states.shape[1])]
+
+
 @pytest.mark.parametrize("case", GRAPHS, ids=[g[0] for g in GRAPHS])
 def test_graph_primitives_match_jax(case):
     _, s, *_ = case
@@ -134,14 +142,14 @@ def test_device_contig_path_matches_jax(case):
     t = tcg._device_contig_gen(_port(s), _t(codes), _t(lengths), _t(contained))
     assert t.n_contigs == j.n_contigs
     assert t.stats == j.stats
-    for a, b in zip(_cset_arrays(t), _cset_arrays(j)):
+    for a, b in zip(_padded_like(t, j), _cset_arrays(j)):
         np.testing.assert_array_equal(a, b)
     # and the host walk, through the dispatch seam
     jh = j_host_contigs(s, codes, lengths, contained)
     th = tcg.generate_contigs(_port(s), _t(codes), _t(lengths), _t(contained),
                               backend="reference")
     assert th.stats == jh.stats and th.n_contigs == jh.n_contigs
-    for a, b in zip(_cset_arrays(th), _cset_arrays(jh)):
+    for a, b in zip(_padded_like(th, jh), _cset_arrays(jh)):
         np.testing.assert_array_equal(a, b)
     tc, hc = t.to_contigs(), th.to_contigs()
     assert [c.reads for c in tc] == [c.reads for c in hc]
@@ -173,8 +181,11 @@ def test_pileup_module_matches_pallas_and_oracle(seed, min_depth):
     pal = pileup_pallas(*map(jnp.asarray, args), min_depth=min_depth, band=128,
                         interpret=True)
     orc = j_pileup_ref(*map(jnp.asarray, args), min_depth=min_depth)
-    got = pileup_vote(*map(_t, args), min_depth=min_depth)
-    ref = pileup_vote_ref(*map(_t, args), min_depth=min_depth)
+    packed, kw = from_padded(*map(_t, args))
+    got = to_padded(pileup_vote(*packed, **kw, min_depth=min_depth),
+                    packed[1], kw["l"])
+    ref = to_padded(pileup_vote_ref(*packed, **kw, min_depth=min_depth),
+                    packed[1], kw["l"])
     for p, o, g, r in zip(pal, orc, got, ref):
         np.testing.assert_array_equal(g.numpy(), np.asarray(p))
         np.testing.assert_array_equal(g.numpy(), np.asarray(o))
@@ -187,66 +198,90 @@ def _chain_cset(seed, err):
     return s, codes, lengths, j_device_contigs(s, codes, lengths)
 
 
+def _pad_pieces(x, n_pieces, c, m):
+    """Per-piece values (any trailing shape) in JAX's padded (C, M) slots."""
+    contig, slot = tcons._piece_slots(n_pieces, x.shape[0])
+    out = torch.zeros((c, m) + tuple(x.shape[1:]), dtype=x.dtype)
+    out[contig, slot] = x
+    return out.numpy()
+
+
+def _refine_matches_jax(s, codes, lengths, cs, rng):
+    """The port's packed gathers, junction refinement and re-laid draft on
+    the port's own contig set, against JAX's padded ones on JAX's, with the
+    same nominal placements perturbed by a few bases (junctions to
+    re-anchor).  Returns the shifted junction count."""
+    tcs = tcg._device_contig_gen(_port(s), _t(codes), _t(lengths))
+    c, m = cs.states.shape
+    jp = jcons._gather_pieces(jnp.asarray(cs.states), jnp.asarray(cs.offsets),
+                              jnp.asarray(cs.widths), jnp.asarray(codes),
+                              jnp.asarray(lengths))
+    tp = tcons._gather_pieces(tcs.states, tcs.offsets, tcs.widths,
+                              _t(codes), _t(lengths))
+    for a, b in zip(tp, jp):
+        np.testing.assert_array_equal(_pad_pieces(a, tcs.n_pieces, c, m),
+                                      np.asarray(b))
+    start = np.asarray(jp[1]) + rng.integers(-4, 5, jp[1].shape).astype(np.int32)
+    start = np.where(np.asarray(jp[2]) > 0, start, 0).astype(np.int32)
+    contig, slot = tcons._piece_slots(tcs.n_pieces, tcs.states.numel())
+    jr = jcons._refine_layout(jp[0], jnp.asarray(start), jp[2], radius=6)
+    tr = tcons._refine_layout(tp[0], _t(start)[contig, slot], tp[2],
+                              tcs.n_pieces, radius=6)
+    # JAX's running sum of starts carries on through a row's empty slots
+    live = np.asarray(cs.states) >= 0
+    for a, b in zip(tr[:3], jr[:3]):
+        np.testing.assert_array_equal(_pad_pieces(a, tcs.n_pieces, c, m)[live],
+                                      np.asarray(b)[live])
+    n = tcs.n_contigs
+    np.testing.assert_array_equal(tr[3].numpy(), np.asarray(jr[3])[:n])
+    assert not np.asarray(jr[3])[n:].any()
+    assert int(tr[4]) == int(jr[4])
+    l = max(int(tr[3].max()), 1)
+    draft = tcons._rescatter_draft(tp[0], tr[1], tr[2], tp[2], tcs.n_pieces,
+                                   tr[3], total=int(tr[3].sum()))
+    np.testing.assert_array_equal(
+        pad_rows(draft, tr[3], rows=c, cols=l).numpy(),
+        np.asarray(jcons._rescatter_draft(jp[0], jr[1], jr[2], jp[2], l=l)))
+    return int(tr[4])
+
+
+def _polish_matches_jax(t, j, *, means=False):
+    """The port's packed ``ConsensusResult`` against JAX's padded one."""
+    assert t.n_contigs == j.n_contigs
+    got = t.padded(rows=j.codes.shape[0], cols=j.codes.shape[1],
+                   slots=j.states.shape[1])
+    for f, g in zip(("codes", "lengths", "states", "depth", "agree"), got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(getattr(j, f)), f)
+    for f in ("depth_mean", "identity", "qv") if means else ():
+        np.testing.assert_allclose(getattr(t, f).numpy(),
+                                   np.asarray(getattr(j, f))[:t.n_contigs],
+                                   rtol=1e-6)
+
+
 def test_junction_refinement_matches_jax():
     """Nominal placements perturbed by a few bases, so the shift search
     has junctions to re-anchor."""
     s, codes, lengths, cs = _chain_cset(3, 0.0)
-    jp = jcons._gather_pieces(jnp.asarray(cs.states), jnp.asarray(cs.offsets),
-                              jnp.asarray(cs.widths), jnp.asarray(codes),
-                              jnp.asarray(lengths))
-    tp = tcons._gather_pieces(_t(cs.states), _t(cs.offsets), _t(cs.widths),
-                              _t(codes), _t(lengths))
-    for a, b in zip(tp, jp):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    rng = np.random.default_rng(0)
-    start = np.asarray(jp[1]) + rng.integers(-4, 5, jp[1].shape).astype(np.int32)
-    start = np.where(np.asarray(jp[2]) > 0, start, 0).astype(np.int32)
-    jr = jcons._refine_layout(jp[0], jnp.asarray(start), jp[2], radius=6)
-    tr = tcons._refine_layout(tp[0], _t(start), tp[2], radius=6)
-    for a, b in zip(tr, jr):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    assert int(tr[4]) > 0
-    l = max(int(tr[3].max()), 1)
-    np.testing.assert_array_equal(
-        tcons._rescatter_draft(tp[0], tr[1], tr[2], tp[2], l=l).numpy(),
-        np.asarray(jcons._rescatter_draft(jp[0], jr[1], jr[2], jp[2], l=l)))
+    assert _refine_matches_jax(s, codes, lengths, cs,
+                               np.random.default_rng(0)) > 0
 
 
 @pytest.mark.parametrize("block", [1, 4, 7, 64])
 def test_consensus_gathers_in_piece_blocks_match_jax(monkeypatch, block):
-    """The gathers over live piece slots only (reads for the pieces and
-    the draft, junctions for the scores), in blocks of ``PIECE_BLOCK``
-    that do not divide their counts: every output equals JAX's (C, M, LR)
-    gathers, and the polished set too."""
+    """The gathers over the live pieces (reads for the pieces and the
+    draft, junctions for the scores), in blocks of ``PIECE_BLOCK`` that do
+    not divide their counts: every output equals JAX's (C, M, LR) gathers,
+    and the polished set too."""
     monkeypatch.setattr(tcons, "PIECE_BLOCK", block)
     s, codes, lengths, cs = _chain_cset(5, 0.04)
-    jp = jcons._gather_pieces(jnp.asarray(cs.states), jnp.asarray(cs.offsets),
-                              jnp.asarray(cs.widths), jnp.asarray(codes),
-                              jnp.asarray(lengths))
-    tp = tcons._gather_pieces(_t(cs.states), _t(cs.offsets), _t(cs.widths),
-                              _t(codes), _t(lengths))
-    for a, b in zip(tp, jp):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    assert int((tp[2] > 0).sum()) % block or block == 1
-    rng = np.random.default_rng(block)
-    start = np.asarray(jp[1]) + rng.integers(-4, 5, jp[1].shape).astype(np.int32)
-    start = np.where(np.asarray(jp[2]) > 0, start, 0).astype(np.int32)
-    jr = jcons._refine_layout(jp[0], jnp.asarray(start), jp[2], radius=6)
-    tr = tcons._refine_layout(tp[0], _t(start), tp[2], radius=6)
-    for a, b in zip(tr, jr):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    l = max(int(tr[3].max()), 1)
-    np.testing.assert_array_equal(
-        tcons._rescatter_draft(tp[0], tr[1], tr[2], tp[2], l=l).numpy(),
-        np.asarray(jcons._rescatter_draft(jp[0], jr[1], jr[2], jp[2], l=l)))
+    assert int((np.asarray(cs.states) >= 0).sum()) % block or block == 1
+    _refine_matches_jax(s, codes, lengths, cs, np.random.default_rng(block))
     j = jcons.polish_contig_set(cs, codes, lengths, backend="reference",
                                 junction_radius=12)
     tcs = tcg._device_contig_gen(_port(s), _t(codes), _t(lengths))
     t = tcons.polish_contig_set(tcs, _t(codes), _t(lengths),
                                 backend="reference", junction_radius=12)
-    for f in ("codes", "lengths", "states", "depth", "agree"):
-        np.testing.assert_array_equal(getattr(t, f).numpy(),
-                                      np.asarray(getattr(j, f)), f)
+    _polish_matches_jax(t, j)
     assert t.stats["n_junction_shifted"] == j.stats["n_junction_shifted"]
 
 
@@ -260,13 +295,7 @@ def test_polish_contig_set_matches_jax(backend, jbackend, radius):
     tcs = tcg._device_contig_gen(_port(s), _t(codes), _t(lengths))
     t = tcons.polish_contig_set(tcs, _t(codes), _t(lengths), backend=backend,
                                 junction_radius=radius)
-    assert t.n_contigs == j.n_contigs
-    for f in ("codes", "lengths", "states", "depth", "agree"):
-        np.testing.assert_array_equal(getattr(t, f).numpy(),
-                                      np.asarray(getattr(j, f)), f)
-    for f in ("depth_mean", "identity", "qv"):
-        np.testing.assert_allclose(getattr(t, f).numpy(),
-                                   np.asarray(getattr(j, f)), rtol=1e-6)
+    _polish_matches_jax(t, j, means=True)
     for key in ("n_changed", "n_junction_shifted"):
         assert t.stats[key] == j.stats[key]
     for key in ("consensus_depth_mean", "identity_estimate", "qv_estimate"):

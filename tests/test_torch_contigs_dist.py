@@ -17,6 +17,7 @@ import sys
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.assembly.contig_gen import _chain_state as j_chain_state
 from repro.assembly.contig_gen import _doubling_local as j_doubling_local
@@ -24,6 +25,7 @@ from repro.assembly.contig_gen import _graph_cut as j_graph_cut
 from repro.assembly.contig_gen import generate_contigs as j_generate
 from repro.assembly.contig_gen import string_matrix_from_edges
 from repro.core.components_dist import exchange_words as j_exchange_words
+from repro_torch.assembly.contig_gen import ContigSet
 from repro_torch.core import components_dist as tcd
 
 from _dist_helpers import run_with_devices
@@ -108,8 +110,18 @@ def test_device_contigs_match_jax(case, ranks):
     _, outs = ranks
     for out in outs:
         assert out["n_contigs"] == cset.n_contigs
-        for f in ("codes", "lengths", "states", "offsets", "widths"):
-            np.testing.assert_array_equal(out["cset"][f],
+        # the port's set is packed (live slots only); laid out as rows of
+        # JAX's shapes it is JAX's padded set
+        packed = ContigSet(**{f: torch.from_numpy(x)
+                              for f, x in out["cset"].items()},
+                           n_contigs=out["n_contigs"], stats={})
+        assert packed.codes.numel() == int(packed.lengths.sum())
+        got = packed.padded(rows=cset.codes.shape[0],
+                            cols=cset.codes.shape[1],
+                            slots=cset.states.shape[1])
+        for f, g in zip(("codes", "lengths", "states", "offsets", "widths"),
+                        got):
+            np.testing.assert_array_equal(g.numpy(),
                                           np.asarray(getattr(cset, f)), f)
         st = out["cset_stats"]
         assert st["distribution"] == "shard_map"

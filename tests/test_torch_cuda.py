@@ -19,6 +19,7 @@ from repro_torch.core.semiring import (
     minplus_orient_semiring,
     overlap_semiring,
 )
+from repro_torch.kernels.pileup.ref import from_padded
 from repro_torch.kernels.spgemm import ops as tops
 
 import _kmer_cases
@@ -247,11 +248,12 @@ def test_pileup_kernel_matches_plain(card):
             cols = np.clip(start[i, t] + np.arange(lr), 0, l - 1)
             pieces[i, t] = draft[i, cols]
     pieces = np.where(rng.random(pieces.shape) < 0.05, (pieces + 1) % 4, pieces)
-    args = [torch.from_numpy(np.array(x)).to(card)
-            for x in (draft, pieces.astype(np.uint8), start, plen)]
+    args, kw = from_padded(*(torch.from_numpy(np.array(x)).to(card)
+                             for x in (draft, pieces.astype(np.uint8), start,
+                                       plen)))
     for md in (1, 2, 3):
-        got = K.pileup_vote(*args, min_depth=md)
-        want = K.pileup_vote_ref(*args, min_depth=md)
+        got = K.pileup_vote(*args, **kw, min_depth=md)
+        want = K.pileup_vote_ref(*args, **kw, min_depth=md)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
 
@@ -262,49 +264,70 @@ def test_pileup_kernel_parity_traps(card, case, min_depth):
     """The tile-list kernel at each parity trap of its design (pieces
     longer than LR, negative starts, starts at or past L, empty pieces, L
     of 1, 8, 9 and around the tile, a tile that 220 pieces reach, a contig
-    with no pieces): three launches, one kernel_launch span each, exact
-    against the plain version."""
+    with no pieces, contigs of ragged lengths), on the packed layout: three
+    launches, one kernel_launch span each, exact against the plain
+    version."""
     from repro_torch.obs import Tracer, tracing
 
-    args = [torch.from_numpy(np.ascontiguousarray(x)).to(card)
-            for x in _pileup_cases.case_inputs(case)]
+    args, kw = _packed_case(case, card)
     before = K.KERNELS["pileup"].launches
     tr = Tracer(memory=False)
     with tracing(tr):
-        got = K.pileup_vote(*args, min_depth=min_depth)
+        got = K.pileup_vote(*args, **kw, min_depth=min_depth)
     assert K.KERNELS["pileup"].launches == before + 3
     assert [sp.attrs["phase"] for sp in tr.find("kernel_launch")] == [
         "bin_count", "bin_fill", "vote"]
-    want = K.pileup_vote_ref(*args, min_depth=min_depth)
+    want = K.pileup_vote_ref(*args, **kw, min_depth=min_depth)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.shape == w.shape and torch.equal(g, w)
 
 
 def test_pileup_tile_lists_on_card(card):
-    """The count and fill launches list each piece once in every tile its
-    vote columns reach (the order inside a list is free), within the
-    capacity sized from shapes alone."""
+    """The count and fill launches list each piece once in every tile of
+    its contig that its vote columns reach (the order inside a list is
+    free), tiles numbered contig after contig, within the capacity sized
+    from shapes alone."""
     from repro_torch.kernels.pileup import ops as pops
 
-    draft, pieces, start, plen = (
-        torch.from_numpy(x).to(card)
-        for x in _pileup_cases.case_inputs("dense_tile"))
-    l, lr = draft.shape[1], pieces.shape[2]
-    ends, slots = pops.tile_lists(start, plen, l, lr)
-    torch.cuda.synchronize()
-    lo, hi = (x.cpu() for x in pops.vote_ranges(start, plen, l, lr))
-    nt = -(-l // pops.TILE)
-    assert int(ends[-1]) == int(pops.tile_entries(start, plen, l, lr).sum())
-    assert int(ends[-1]) <= slots.numel()
-    ends = ends.cpu().tolist()
-    for t in range(nt):
-        got = sorted(slots[(ends[t - 1] if t else 0):ends[t]].cpu().tolist())
-        want = [pm for pm in range(start.shape[1])
-                if lo[0, pm] < min(hi[0, pm], (t + 1) * pops.TILE)
-                and hi[0, pm] > max(lo[0, pm], t * pops.TILE)]
-        assert got == want
-    assert ends[1] - ends[0] >= 200
+    for case in ("dense_tile", "ragged"):
+        (draft, lengths, pieces, contig, start, plen), _ = _packed_case(
+            case, card)
+        lr = pieces.shape[1]
+        tile_first, tile_contig = pops.tile_layout(lengths, draft.numel())
+        ends, slots = pops.tile_lists(lengths, contig, start, plen,
+                                      tile_first, tile_contig.numel(), lr)
+        torch.cuda.synchronize()
+        lc = lengths[contig.long()]
+        lo, hi = (x.cpu() for x in pops.vote_ranges(start, plen, lc, lr))
+        assert int(ends[-1]) == int(pops.tile_entries(start, plen, lc,
+                                                      lr).sum())
+        assert int(ends[-1]) <= slots.numel()
+        ends, slots = ends.cpu().tolist(), slots.cpu()
+        tile_first, tile_contig = tile_first.cpu(), tile_contig.cpu()
+        contig = contig.cpu()
+        for k in range(tile_contig.numel()):
+            got = sorted(slots[(ends[k - 1] if k else 0):ends[k]].tolist())
+            c = int(tile_contig[k])
+            if c >= lengths.numel():
+                assert got == []
+                continue
+            t = k - int(tile_first[c])
+            want = [p for p in range(start.numel()) if int(contig[p]) == c
+                    and lo[p] < min(hi[p], (t + 1) * pops.TILE)
+                    and hi[p] > max(lo[p], t * pops.TILE)]
+            assert got == want
+        if case == "dense_tile":
+            assert ends[1] - ends[0] >= 200
+
+
+def _packed_case(case, card):
+    """A parity-trap case of ``tests/_pileup_cases.py``, packed, on the
+    card: ``(args, kwargs)`` of the op."""
+    np_args = _pileup_cases.case_inputs(case)
+    lengths = torch.from_numpy(_pileup_cases.case_lengths(case)).to(card)
+    return from_padded(*(torch.from_numpy(np.ascontiguousarray(x)).to(card)
+                         for x in np_args), lengths=lengths)
 
 
 def _stage_panels(rng, kind, stages, n, nb, ka, kb, n_out):

@@ -298,8 +298,8 @@ def test_pileup_polish_host_matches_jax(seed, err, break_every):
     cset = generate_contigs(s, torch.from_numpy(codes),
                             torch.from_numpy(lengths), backend="cuda")
     jset = j_generate(js, codes, lengths, backend="pallas")
-    args = (cset.codes, cset.lengths, cset.states, cset.offsets, cset.widths,
-            codes, lengths)
+    args = (*cset.padded(rows=jset.codes.shape[0], cols=jset.codes.shape[1],
+                         slots=jset.states.shape[1]), codes, lengths)
     got = tcontigs.pileup_polish_host(*args, min_depth=2)
     want = jcontigs.pileup_polish_host(
         jset.codes, jset.lengths, jset.states, jset.offsets, jset.widths,

@@ -1,13 +1,14 @@
-"""``assembly/contigs.materialize_rows``: the padded contig tensors as host
-``Contig`` records, from the live rows and bases alone, equal to slicing
-each padded row (the records the draft ``ContigSet`` and the polished
-``ConsensusResult`` give)."""
+"""``assembly/contigs.materialize_packed`` and ``pad_rows``: the packed
+contig tensors as host ``Contig`` records, from one transfer of the live
+bases, equal to slicing each row of the padded layout (the records the
+draft ``ContigSet`` and the polished ``ConsensusResult`` give); and the
+packed tensors laid back out as padded rows."""
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.assembly.contigs import _live_bases, materialize_rows
+from repro_torch.assembly.contigs import materialize_packed, pad_rows
 
 
 def _padded(seed, n_contigs, rows, width, m):
@@ -31,15 +32,26 @@ def _by_slicing(codes, lengths, states, n_contigs):
             for i in range(n_contigs)]
 
 
+def _packed(codes, lengths, states, n_contigs):
+    """The first ``n_contigs`` rows, packed: bases, lengths, states and
+    the states of each row."""
+    lens = lengths[:n_contigs]
+    live = states[:n_contigs] >= 0
+    flat = (np.concatenate([codes[i, :lens[i]] for i in range(n_contigs)])
+            if n_contigs else np.zeros(0, np.uint8))
+    return (flat, lens, states[:n_contigs][live],
+            live.sum(axis=1).astype(np.int32))
+
+
 @pytest.mark.parametrize("as_tensor", [True, False])
 @pytest.mark.parametrize("n_contigs,rows", [(5, 8), (8, 8), (1, 4), (0, 4)])
 def test_materialize_rows_equals_slicing_each_row(as_tensor, n_contigs, rows):
     codes, lengths, states = _padded(n_contigs + rows, n_contigs, rows, 37, 6)
     want = _by_slicing(codes, lengths, states, n_contigs)
-    args = ((torch.from_numpy(codes), torch.from_numpy(lengths),
-             torch.from_numpy(states)) if as_tensor
-            else (codes, lengths, states))
-    got = materialize_rows(*args, n_contigs)
+    args = _packed(codes, lengths, states, n_contigs)
+    if as_tensor:
+        args = tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in args)
+    got = materialize_packed(*args)
     assert len(got) == n_contigs
     for c, (reads, length, bases) in zip(got, want):
         assert c.reads == reads and c.length == length
@@ -50,9 +62,19 @@ def test_materialize_rows_equals_slicing_each_row(as_tensor, n_contigs, rows):
 
 
 def test_live_bases_take_the_live_prefix_of_each_row():
+    """``pad_rows`` lays packed values back out as rows, each row's live
+    prefix then ``fill``, at the shape asked for or the least that holds
+    them."""
     codes = torch.arange(24, dtype=torch.uint8).reshape(4, 6)
-    lens = np.array([2, 0, 6, 1], np.int64)
+    lens = torch.tensor([2, 0, 6, 1], dtype=torch.int32)
+    flat = codes[torch.arange(6)[None, :] < lens[:, None]]
     np.testing.assert_array_equal(
-        _live_bases(codes, lens), np.array([0, 1, 12, 13, 14, 15, 16, 17, 18],
-                                           np.uint8))
-    assert _live_bases(codes, lens[:0]).shape == (0,)
+        flat.numpy(), np.array([0, 1, 12, 13, 14, 15, 16, 17, 18], np.uint8))
+    back = pad_rows(flat, lens, rows=5, cols=7, fill=9)
+    assert back.shape == (5, 7) and back.dtype == torch.uint8
+    want = torch.full((5, 7), 9, dtype=torch.uint8)
+    for i, n in enumerate(lens.tolist()):
+        want[i, :n] = codes[i, :n]
+    assert torch.equal(back, want)
+    assert pad_rows(flat, lens).shape == (4, 6)
+    assert pad_rows(flat[:0], lens[:0]).shape == (0, 0)

@@ -59,6 +59,7 @@ STEPS = {
     "TrReduction": ["TrReduction.square", "TrReduction.prune"],
     "Contigs": ["Contigs.chains", "Contigs.layout", "Contigs.gather",
                 "Contigs.materialize"],
+    "Consensus": ["Consensus.gather", "Consensus.refine", "Consensus.vote"],
 }
 MEMORY_KEYS = ("peak_hbm_bytes", "hbm_bytes_in_use", "hbm_source")
 WINDOW = "test.assembly"
@@ -161,6 +162,28 @@ def test_step_attributes_are_the_host_counts(runs):
     (mat,) = tr.find("Contigs.materialize")
     (gat,) = tr.find("Contigs.gather")
     assert mat.attrs["n_contigs"] == gat.attrs["n_contigs"] == len(res.contigs)
+    assert gat.attrs["max_len"] == max(c.length for c in res.contigs)
+    assert gat.attrs["live_bases"] == sum(c.length for c in res.contigs)
+    # the Consensus steps: the live pieces and columns held, against the
+    # slots of a layout padded to the longest chain and contig
+    chains = [len(c.reads) for c in res.contigs]
+    polished = res.polished_contigs
+    (cg,) = tr.find("Consensus.gather")
+    (cr,) = tr.find("Consensus.refine")
+    (cv,) = tr.find("Consensus.vote")
+    assert cg.attrs["n_contigs"] == len(chains)
+    assert cg.attrs["longest_chain"] == max(chains)
+    assert cg.attrs["live_slots"] == sum(chains)
+    assert cg.attrs["padded_slots"] == len(chains) * max(chains)
+    assert cr.attrs["live_columns"] == cv.attrs["live_columns"] == sum(
+        c.length for c in polished)
+    assert cr.attrs["padded_columns"] == len(polished) * max(
+        c.length for c in polished)
+    # the overflow counts ride on their stages' spans
+    (sg,) = tr.find("SpGEMM")
+    (br,) = tr.find("BuildR")
+    assert sg.attrs["overflow_C"] == res.stats["overflow_C"]
+    assert br.attrs["overflow_R"] == res.stats["overflow_R"]
 
 
 @pytest.mark.parametrize("source", ["assemble", "all_valid", "some_invalid"])
@@ -195,7 +218,7 @@ def test_runs_step_counts_the_runs(runs, source):
 
 
 def test_benchmark_names_every_step_span(runs):
-    """The benchmark's ``step_s.*`` metrics of the four stages are the step
+    """The benchmark's ``step_s.*`` metrics of the five stages are the step
     labels a traced run opens, no more and no fewer."""
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     named = {m["name"][len("step_s."):] for m in bench["per_layer"]
@@ -608,7 +631,7 @@ def test_each_new_metric_has_exactly_one_reader():
     mods = harness.readers()
     new = [m["name"] for m in bench["per_layer"]
            if m["name"].startswith(("step_s.", "own_peak_gib."))]
-    assert len(new) == 13 + 3 + 2 + 8
+    assert len(new) == 16 + 3 + 2 + 8
     for name in new:
         rd = harness.reader_for(name, mods)
         assert rd is (step_s if name.startswith("step_s.") else own_peak_gib)
